@@ -1,0 +1,440 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout on a machine with a CUDA card.  Phases:
+
+1. device: the card's name and power limit (nvidia-smi), its torch name
+   and the device count;
+2. build: both kernels of `licensee_tpu_torch/csrc/` compiled by nvcc
+   for sm_90a, with ptxas's register/shared-memory report;
+3. kernels: K1 (`score_pairs_fused`) and K2 (`overlap_pairs_mma`) on
+   seeded random features at the main path's shape (vendored width
+   T=47, W=112, one 4096-row batch) and at B=262144 at the vendored and
+   the synthetic-SPDX width (T=608, W=132), each held bit for bit
+   against its plain PyTorch version on the card, then timed with CUDA
+   events beside its plain version, the library call that computes the
+   same function (K2: ``torch._int_mm`` on the unpacked operands) and
+   the least time the card could take (its bound);
+4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
+   (the vendored templates rendered with field values, the test
+   fixtures, and seeded word-level mutations of both), once through K1
+   (--method pallas) and once through K2 (--method pallas-mxu); each
+   output must be byte-identical to the same run with --device cpu, and
+   each kernel must have launched during its run.
+
+The last line of stdout is ``{"ok": true, "device": {...}}``; the line
+before it the JSON of every kernel's numbers.  Any failure exits
+non-zero before those lines are printed.  Imports nothing of JAX or of
+the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import functools
+import io
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+
+# published peaks of one H100 SXM (dense, 700 W): HBM rate, int8 tensor
+# cores, and the 32-bit CUDA-core rate (the FP32 figure: the table has no
+# separate integer rate, so K1's bound counts its AND/POPC/ADD there)
+HBM_BYTES_PER_S = 3.35e12
+INT8_TENSOR_OPS_PER_S = 1979e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+MAIN_B = 4096  # batch-detect's default --batch-size: the main path's chunk
+SHAPES = [
+    # (label, B, T, W)
+    ("main", MAIN_B, 47, 112),
+    ("B262144,T47,W112", 262144, 47, 112),
+    ("B262144,T608,W132", 262144, 608, 132),
+]
+
+FIELD_VALUES = {
+    "fullname": "Ben Balter",
+    "year": "2018",
+    "email": "ben@github.invalid",
+    "projecturl": "http://github.invalid/benbalter/licensee",
+    "login": "benbalter",
+    "project": "Licensee",
+    "description": "Detects licenses",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+# -- phase 1: device ---------------------------------------------------------
+
+
+def phase_device(torch) -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    log(smi.splitlines()[0])
+    device = {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }
+    log(f"device: {device['kind']} x{device['count']} (torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda})")
+    return device
+
+
+# -- phase 2: build ------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from licensee_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    report = build.build(verbose=True)
+    log(f"build: {len(build.sources())} sources -> {build.LIBRARY} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line or "Compiling" in line:
+            log("  ptxas: " + line.strip())
+    build.load_library()
+
+
+# -- phase 3: kernels ----------------------------------------------------------
+
+
+def cuda_time_ms(torch, fn, min_total_s: float = 0.3, max_iters: int = 50):
+    """Mean milliseconds per call over a run of calls timed by CUDA
+    events, after a warm-up call; the count adapts to the call's time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once = time.perf_counter() - t0
+    iters = int(max(3, min(max_iters, min_total_s / max(once, 1e-6))))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def random_case(np, torch, rng, B, T, W):
+    """Seeded corpus constants and blob features of the given widths:
+    dense random bitsets, and columns in the ranges real corpora have."""
+    dev = "cuda"
+    bits = rng.integers(0, 2**32, size=(T, W), dtype=np.uint32)
+    file_bits = rng.integers(0, 2**32, size=(B, W), dtype=np.uint32)
+    cols = {
+        "n_wf": rng.integers(50, 3000, T),
+        "n_fieldset": rng.integers(0, 4, T),
+        "field_count": rng.integers(0, 6, T),
+        "alt_count": rng.integers(0, 40, T),
+        "length": rng.integers(100, 60000, T),
+    }
+    from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
+
+    def t32(a):
+        return torch.from_numpy(np.asarray(a, dtype=np.int32)).to(dev)
+
+    ct = CorpusTensors(
+        bits=torch.from_numpy(bits.view(np.int32)).to(dev),
+        n_wf=t32(cols["n_wf"]),
+        n_fieldset=t32(cols["n_fieldset"]),
+        field_count=t32(cols["field_count"]),
+        alt_count=t32(cols["alt_count"]),
+        length=t32(cols["length"]),
+        cc_flag=torch.from_numpy(rng.random(T) < 0.1).to(dev),
+        valid=torch.from_numpy(rng.random(T) < 0.95).to(dev),
+    )
+    feats = (
+        torch.from_numpy(file_bits.view(np.int32)).to(dev),
+        t32(rng.integers(0, 3000, B)),
+        t32(rng.integers(0, 60000, B)),
+        torch.from_numpy(rng.random(B) < 0.1).to(dev),
+    )
+    return ct, feats
+
+
+def max_abs_err(torch, got, want) -> int:
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def phase_kernels(np, torch, seed: int) -> list[dict]:
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for label, B, T, W in SHAPES:
+        ct, (fb, nw, ln, cf) = random_case(np, torch, rng, B, T, W)
+        meta = dice_cuda.pack_meta(ct)
+        tpl_i8 = dice_cuda.pack_templates_mma(ct)
+        v_pad = tpl_i8.shape[1]
+        suffix = "" if label == "main" else f"@{label}"
+
+        # K1: fused popcount + score algebra
+        def k1():
+            return dice_cuda.score_pairs_fused(meta, ct.bits, fb, nw, ln, cf)
+
+        def k1_plain():
+            return dice_cuda.score_pairs_fused_plain(
+                meta, ct.bits, fb, nw, ln, cf)
+
+        (num, den), (pnum, pden) = k1(), k1_plain()
+        torch.cuda.synchronize()
+        err = max(max_abs_err(torch, num, pnum), max_abs_err(torch, den, pden))
+        if err:
+            raise AssertionError(f"K1 {label}: kernel != plain (max {err})")
+        del num, den, pnum, pden
+        k1_bytes = (B * W * 4 + T * W * 4 + T * 8 * 4 + B * 9 + 2 * B * T * 4)
+        k1_ops = 3 * B * T * W
+        rows.append(kernel_row(
+            torch, "score_pairs_fused" + suffix, "dice_score_fused.cu",
+            "licensee_tpu/kernels/dice_pallas.py:482", B, T, W, err,
+            k1, k1_plain, None, k1_bytes, k1_ops, CUDA_CORE_OPS_PER_S,
+        ))
+
+        # K2: fused unpack + int8 tensor-core overlap
+        def k2():
+            return dice_cuda.overlap_pairs_mma(tpl_i8, fb, T)
+
+        def k2_plain():
+            return dice_cuda.overlap_pairs_mma_plain(tpl_i8, fb, T)
+
+        got, want = k2(), k2_plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(torch, got, want)
+        if err:
+            raise AssertionError(f"K2 {label}: kernel != plain (max {err})")
+        del got, want
+        # the library yardstick: cuBLAS's int8 product on operands the
+        # library cannot unpack itself (unpacked here, outside the timing)
+        from licensee_tpu_torch.kernels import dice_ref
+
+        lhs = torch.zeros((B, v_pad), dtype=torch.int8, device="cuda")
+        lhs[:, : 32 * W] = dice_ref.unpack_bits(fb)
+        k2_library = None
+        for rhs in (tpl_i8.T, tpl_i8.T.contiguous()):  # [v_pad, t_pad]
+            try:
+                lib = torch._int_mm(lhs, rhs)[:, :T]
+                torch.cuda.synchronize()
+            except RuntimeError as exc:
+                log(f"torch._int_mm refused {label} operands: {exc}")
+                continue
+            lib_err = max_abs_err(torch, lib, k2())
+            if lib_err:
+                raise AssertionError(f"K2 {label}: _int_mm != kernel "
+                                     f"(max {lib_err})")
+            del lib
+            k2_library = functools.partial(torch._int_mm, lhs, rhs)
+            break
+        # the template rows and columns the contraction needs: T rows of
+        # 32·W unpacked bytes, not the tile padding of tpl_i8
+        k2_bytes = B * W * 4 + T * 32 * W + B * T * 4
+        k2_ops = 2 * B * T * 32 * W
+        rows.append(kernel_row(
+            torch, "overlap_pairs_mma" + suffix, "dice_overlap_mma.cu",
+            "licensee_tpu/kernels/dice_pallas.py:355", B, T, W, err,
+            k2, k2_plain, k2_library, k2_bytes, k2_ops,
+            INT8_TENSOR_OPS_PER_S,
+        ))
+        del k2_library, lhs, ct, fb, nw, ln, cf, meta, tpl_i8
+        torch.cuda.empty_cache()
+    return rows
+
+
+def kernel_row(torch, name, source, replaces, B, T, W, err, fn, plain,
+               library, n_bytes, n_ops, ops_rate) -> dict:
+    ms = cuda_time_ms(torch, fn)
+    plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5)
+    library_ms = cuda_time_ms(torch, library) if library else None
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / ops_rate * 1e3
+    row = {
+        "name": name,
+        "route": "cuda",
+        "source": "licensee_tpu_torch/csrc/" + source,
+        "replaces": replaces,
+        "launches": 0,  # filled from the main path's run (phase 4)
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": library_ms,
+        "shape": {"B": B, "T": T, "W": W},
+    }
+    log(f"kernel {name}: B={B} T={T} W={W} max_abs_err={err} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
+        f"{n_bytes} bytes, {n_ops} ops)")
+    return row
+
+
+# -- phase 4: the slice ----------------------------------------------------------
+
+
+def mutate(text: str, rng, rate: float) -> str:
+    """Seeded word-level edits: each word is kept, dropped, doubled or
+    replaced by a made-up word with total probability ``rate``."""
+    parts = re.split(r"(\s+)", text)
+    out = []
+    for p in parts:
+        if not p or p.isspace():
+            out.append(p)
+            continue
+        r = rng.random()
+        if r < rate / 3:
+            continue
+        if r < 2 * rate / 3:
+            out.append(p + " " + p)
+        elif r < rate:
+            out.append("zq" + "".join(rng.choice(list("abcdefgh"), 5)))
+        else:
+            out.append(p)
+    return "".join(out)
+
+
+def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
+    from licensee_tpu_torch.corpus.fields import field_regex
+    from licensee_tpu_torch.corpus.license import License
+
+    rng = np.random.default_rng(seed)
+    bases = []
+    for lic in License.all(hidden=True, pseudo=False):
+        text = field_regex().sub(
+            lambda m: FIELD_VALUES[m.group(1)], lic.content or "")
+        bases.append((f"{lic.key}.LICENSE", text))
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    for dirpath, _dirs, files in sorted(os.walk(fixtures)):
+        if os.path.relpath(dirpath, fixtures).split(os.sep)[0] == "analysis":
+            continue  # the static analyzer's Python fixtures
+        for f in sorted(files):
+            if f.endswith((".json", ".yml")):
+                continue
+            with open(os.path.join(dirpath, f), "rb") as fh:
+                raw = fh.read()
+            if len(raw) <= 64 * 1024:
+                bases.append((f, raw.decode("utf-8", errors="ignore")))
+    paths = []
+    for i, (name, text) in enumerate(bases):
+        path = os.path.join(root, f"b{i:04d}", name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        paths.append(path)
+    rates = (0.002, 0.01, 0.03, 0.1, 0.3)
+    for i in range(n_files - len(paths) - 1):
+        name, text = bases[int(rng.integers(len(bases)))]
+        path = os.path.join(root, f"m{i:04d}", name)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(mutate(text, rng, rates[int(rng.integers(len(rates)))]))
+        paths.append(path)
+    paths.append(os.path.join(root, "missing", "LICENSE"))  # unreadable
+    manifest = os.path.join(root, "manifest.txt")
+    with open(manifest, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(paths) + "\n")
+    return manifest
+
+
+def run_cli(argv: list[str]) -> dict:
+    from licensee_tpu_torch.cli.main import main
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = main(argv)
+    if rc != 0:
+        raise RuntimeError(f"batch-detect {argv} exited {rc}: {err.getvalue()}")
+    return json.loads(err.getvalue().strip().splitlines()[-1])
+
+
+def phase_slice(np, torch, seed: int) -> dict:
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    launches = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        manifest = write_manifest(np, root, seed)
+        with open(manifest, encoding="utf-8") as fh:
+            n_rows = sum(1 for line in fh if line.strip())
+        for method, kernel in (("pallas", "score_pairs_fused"),
+                               ("pallas-mxu", "overlap_pairs_mma")):
+            outs = {}
+            for device in ("cpu", "cuda"):
+                out = os.path.join(root, f"{method}.{device}.jsonl")
+                argv = ["batch-detect", manifest, "--output", out,
+                        "--method", method, "--device", device, "--stats"]
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                    dice_cuda.reset_launches()
+                t0 = time.perf_counter()
+                stats = run_cli(argv)
+                elapsed = time.perf_counter() - t0
+                if device == "cuda":
+                    launches[kernel] = dice_cuda.LAUNCHES[kernel]
+                with open(out, "rb") as fh:
+                    outs[device] = fh.read()
+                lines = outs[device].decode().splitlines()
+                if len(lines) != n_rows:
+                    raise AssertionError(
+                        f"{method}/{device}: {len(lines)} rows for "
+                        f"{n_rows} manifest entries")
+                for line in lines:
+                    json.loads(line)
+                log(f"slice {method} --device {device}: {n_rows} rows in "
+                    f"{elapsed:.2f} s ({n_rows / elapsed:.1f} rows/s), "
+                    f"dice-bound rows {stats['device_rows']}, dice matches "
+                    f"{stats['dice_matched']}, stats {json.dumps(stats)}")
+            if outs["cuda"] != outs["cpu"]:
+                raise AssertionError(
+                    f"{method}: the cuda JSONL differs from the cpu JSONL")
+            if launches[kernel] < 1:
+                raise AssertionError(
+                    f"{method}: {kernel} never launched on the main path")
+            log(f"slice {method}: cuda output byte-identical to cpu; "
+                f"{kernel} launches {launches[kernel]}")
+    return launches
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    import licensee_tpu_torch  # noqa: F401 — fails outside a checkout
+
+    device = phase_device(torch)
+    phase_build()
+    rows = phase_kernels(np, torch, args.seed)
+    launches = phase_slice(np, torch, args.seed)
+    for row in rows:
+        row["launches"] = launches[row["name"].split("@")[0]]
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": device}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

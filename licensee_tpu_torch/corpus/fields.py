@@ -1,0 +1,54 @@
+"""Substitutable license fields ([year], [fullname], ...).
+
+Parity target: `lib/licensee/license_field.rb`.  Fields are loaded from the
+vendored `fields.yml`; ``FIELD_REGEX`` is used both to enumerate fields in a
+license body and to excise field tokens from similarity scoring
+(`lib/licensee/content_helper.rb:328-331`).
+"""
+
+from __future__ import annotations
+
+import functools
+
+from licensee_tpu_torch import vendor_paths
+from licensee_tpu_torch.corpus import yamlite
+from licensee_tpu_torch.rubytext import rb, union_patterns
+
+
+class LicenseField:
+    def __init__(self, name: str, description: str | None = None):
+        self.name = name
+        self.description = description
+
+    @property
+    def key(self) -> str:
+        return self.name
+
+    def __repr__(self) -> str:
+        return f"<LicenseField name={self.name}>"
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, LicenseField) and other.name == self.name
+
+    def __hash__(self) -> int:
+        return hash(("LicenseField", self.name))
+
+    @staticmethod
+    @functools.cache
+    def all() -> tuple["LicenseField", ...]:
+        with open(vendor_paths.FIELDS_YML, encoding="utf-8") as f:
+            raw = yamlite.load_sequence_of_mappings(f.read())
+        return tuple(
+            LicenseField(entry["name"], entry.get("description")) for entry in raw
+        )
+
+    @staticmethod
+    @functools.cache
+    def keys() -> tuple[str, ...]:
+        return tuple(f.key for f in LicenseField.all())
+
+
+@functools.cache
+def field_regex():
+    """``/\\[(year|fullname|...)\\]/`` (reference: license_field.rb:53)."""
+    return rb(r"\[(" + union_patterns(list(LicenseField.keys())) + r")\]")

@@ -1,0 +1,56 @@
+"""License metadata parsed from template YAML front matter.
+
+Parity target: `lib/licensee/license_meta.rb`.  Defaults match
+choosealicense.com's collection defaults (featured: false, hidden: true).
+The front matter is read by the port's own YAML-subset reader
+(`corpus/yamlite.py`), not PyYAML.
+"""
+
+from __future__ import annotations
+
+from licensee_tpu_torch.corpus import yamlite
+
+MEMBERS = (
+    "title",
+    "spdx_id",
+    "source",
+    "description",
+    "how",
+    "conditions",
+    "permissions",
+    "limitations",
+    "using",
+    "featured",
+    "hidden",
+    "nickname",
+    "note",
+)
+
+DEFAULTS = {"featured": False, "hidden": True}
+
+
+class LicenseMeta:
+    def __init__(self, values: dict):
+        for member in MEMBERS:
+            setattr(self, member, values.get(member))
+
+    @classmethod
+    def from_yaml(cls, raw_yaml: str | None) -> "LicenseMeta":
+        # Front matter arrives with its `---` document markers; the
+        # reader takes the first document like Ruby's YAML.safe_load does.
+        return cls.from_hash(yamlite.front_matter(raw_yaml))
+
+    @classmethod
+    def from_hash(cls, data: dict) -> "LicenseMeta":
+        merged = dict(DEFAULTS)
+        merged.update(data or {})
+        merged["spdx_id"] = merged.pop("spdx-id", None)
+        return cls(merged)
+
+    @property
+    def featured_q(self) -> bool:
+        return bool(self.featured)
+
+    @property
+    def hidden_q(self) -> bool:
+        return bool(self.hidden)

@@ -1,0 +1,248 @@
+"""The hand-written Hopper Dice kernels and their wrappers.
+
+Counterpart of `licensee_tpu/kernels/dice_pallas.py`, whose two Pallas
+TPU kernels become CUDA C++ in `licensee_tpu_torch/csrc/`:
+
+* K1 `score_pairs_fused` (csrc/dice_score_fused.cu) replaces
+  `_make_kernel` behind `_score_pairs_padded`: popcount of the bitset
+  intersection and the exact int32 score algebra in one pass, giving
+  (num, den) int32[B, T].
+* K2 `overlap_pairs_mma` (csrc/dice_overlap_mma.cu) replaces
+  `_make_mxu_kernel` behind `_overlap_mxu_padded`: the blob bits
+  unpacked on chip and contracted against the host-unpacked templates
+  on the int8 tensor cores, giving overlap int32[B, T].
+
+Each wrapper runs the kernel for CUDA tensors and its plain PyTorch
+version (built on `kernels/dice_ref.py`) for CPU tensors, and counts its
+kernel launches in ``LAUNCHES``.  There is no fallback: a CUDA tensor the
+kernel cannot take raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from licensee_tpu_torch.kernels import dice_ref
+from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
+
+# kernel name -> launches since the last reset; a wrapper adds one
+# exactly where it launches its kernel
+LAUNCHES = {"score_pairs_fused": 0, "overlap_pairs_mma": 0}
+
+# meta-table columns of K1 (int32[T, 8], one row per template), as
+# `dice_pallas.pack_corpus` lays them out
+N_WF, N_FIELDSET, FIELD_COUNT, ALT_COUNT, LENGTH, CC_FLAG, VALID = range(7)
+META_COLS = 8
+
+# K2's tiling, mirrored from csrc/dice_overlap_mma.cu: the unpacked
+# template matrix is padded to whole blocks of templates and whole stages
+# of packed words, so the kernel's template reads never leave it
+MMA_TILE_T = 64
+MMA_STAGE_WORDS = 8
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def pack_meta(ct: CorpusTensors) -> torch.Tensor:
+    """K1's per-template constants as one int32[T, 8] table."""
+    meta = torch.zeros(
+        (ct.n_templates, META_COLS), dtype=torch.int32, device=ct.bits.device
+    )
+    meta[:, N_WF] = ct.n_wf
+    meta[:, N_FIELDSET] = ct.n_fieldset
+    meta[:, FIELD_COUNT] = ct.field_count
+    meta[:, ALT_COUNT] = ct.alt_count
+    meta[:, LENGTH] = ct.length
+    meta[:, CC_FLAG] = ct.cc_flag.to(torch.int32)
+    meta[:, VALID] = ct.valid.to(torch.int32)
+    return meta
+
+
+def pack_templates_mma(ct: CorpusTensors) -> torch.Tensor:
+    """K2's template operand, unpacked once: int8[T_pad, V_pad] with bit
+    i of lane w at column 32·w + i (zero padding rows and columns)."""
+    T, W = ct.bits.shape
+    unpacked = dice_ref.unpack_bits(ct.bits)
+    out = torch.zeros(
+        (_round_up(max(T, 1), MMA_TILE_T), 32 * _round_up(W, MMA_STAGE_WORDS)),
+        dtype=torch.int8,
+        device=ct.bits.device,
+    )
+    out[:T, : 32 * W] = unpacked
+    return out
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _lib():
+    from licensee_tpu_torch.kernels.build import load_library
+
+    return load_library()
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
+
+
+# -- K1 ---------------------------------------------------------------------
+
+
+def score_pairs_fused_plain(meta, tpl_bits, file_bits, n_words, lengths,
+                            cc_fp):
+    """K1's function in plain PyTorch: popcount overlaps, then the score
+    algebra on the meta table's columns."""
+    overlap = dice_ref.overlap_popcount(file_bits, tpl_bits)
+    return dice_ref.dice_algebra(
+        overlap, n_words, lengths, cc_fp,
+        meta[:, N_WF], meta[:, N_FIELDSET], meta[:, FIELD_COUNT],
+        meta[:, ALT_COUNT], meta[:, LENGTH], meta[:, CC_FLAG] == 1,
+        meta[:, VALID] == 1,
+    )
+
+
+def score_pairs_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
+    """Exact (num, den) int32[B, T] for every (blob, template) pair.
+
+    ``meta`` int32[T, 8] (`pack_meta`), ``tpl_bits`` int32[T, W],
+    ``file_bits`` int32[B, W] (uint32 bitsets viewed as int32; W a
+    multiple of 4), ``n_words``/``lengths`` int32[B], ``cc_fp`` bool[B]."""
+    if file_bits.device.type != "cuda":
+        return score_pairs_fused_plain(
+            meta, tpl_bits, file_bits, n_words, lengths, cc_fp
+        )
+    B, W = file_bits.shape
+    T = tpl_bits.shape[0]
+    dev = file_bits.device
+    _check(meta, "meta", torch.int32, (T, META_COLS), dev)
+    _check(tpl_bits, "tpl_bits", torch.int32, (T, W), dev)
+    _check(file_bits, "file_bits", torch.int32, (B, W), dev)
+    _check(n_words, "n_words", torch.int32, (B,), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    _check(cc_fp, "cc_fp", torch.bool, (B,), dev)
+    if W % 4 or file_bits.data_ptr() % 16 or tpl_bits.data_ptr() % 16:
+        raise ValueError(
+            "score_pairs_fused reads 16-byte rows: W must be a multiple "
+            "of 4 and the bitsets 16-byte aligned"
+        )
+    num = torch.empty((B, T), dtype=torch.int32, device=dev)
+    den = torch.empty((B, T), dtype=torch.int32, device=dev)
+    if B == 0 or T == 0:
+        return num, den
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().dice_score_fused(
+            meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
+            n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
+            num.data_ptr(), den.data_ptr(), B, T, W, stream,
+        )
+    LAUNCHES["score_pairs_fused"] += 1
+    _raise_on(err, "score_pairs_fused")
+    return num, den
+
+
+# -- K2 ---------------------------------------------------------------------
+
+
+def overlap_pairs_mma_plain(tpl_unpacked, file_bits, n_templates: int):
+    """K2's function in plain PyTorch: unpack the blob bits in the same
+    lane-major order and contract them against the unpacked templates."""
+    W = file_bits.shape[1]
+    return dice_ref.overlap_unpacked(
+        file_bits, tpl_unpacked[:n_templates, : 32 * W]
+    )
+
+
+def overlap_pairs_mma(tpl_unpacked, file_bits, n_templates: int):
+    """overlap int32[B, T] = unpack(file_bits) · unpack(templates)ᵀ.
+
+    ``tpl_unpacked`` int8[T_pad, V_pad] (`pack_templates_mma`),
+    ``file_bits`` int32[B, W] (uint32 bitsets viewed as int32),
+    ``n_templates`` the T of the output."""
+    if file_bits.device.type != "cuda":
+        return overlap_pairs_mma_plain(tpl_unpacked, file_bits, n_templates)
+    B, W = file_bits.shape
+    T = int(n_templates)
+    t_pad, v_pad = tpl_unpacked.shape
+    dev = file_bits.device
+    if (
+        t_pad % MMA_TILE_T
+        or T > t_pad
+        or v_pad != 32 * _round_up(W, MMA_STAGE_WORDS)
+    ):
+        raise ValueError(
+            f"tpl_unpacked {tuple(tpl_unpacked.shape)} does not fit "
+            f"T={T}, W={W} (see pack_templates_mma)"
+        )
+    _check(tpl_unpacked, "tpl_unpacked", torch.int8, (t_pad, v_pad), dev)
+    _check(file_bits, "file_bits", torch.int32, (B, W), dev)
+    out = torch.empty((B, T), dtype=torch.int32, device=dev)
+    if B == 0 or T == 0:
+        return out
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().dice_overlap_mma(
+            tpl_unpacked.data_ptr(), file_bits.data_ptr(), out.data_ptr(),
+            B, T, W, t_pad, v_pad, stream,
+        )
+    LAUNCHES["overlap_pairs_mma"] += 1
+    _raise_on(err, "overlap_pairs_mma")
+    return out
+
+
+# -- the scorer the batch path dispatches ------------------------------------
+
+# --method names, kept from the JAX package's CLI; in this port each
+# runs one of the two kernels on the card and its plain version on the CPU
+K1_METHODS = ("auto", "popcount", "pallas")
+K2_METHODS = ("matmul", "pallas-mxu")
+
+
+def make_best_match_fn(ct: CorpusTensors, method: str):
+    """A scorer closed over the corpus constants on ``ct``'s device:
+    ``fn(file_bits, n_words, lengths, cc_fp)`` on numpy rows (uint32[B, W]
+    bits, int32[B] columns, bool[B] flags) returns the exact top-1
+    (idx, num, den) as numpy int32[B] arrays."""
+    device = ct.bits.device
+    if method in K1_METHODS:
+        meta = pack_meta(ct)
+
+        def scores(fb, nw, ln, cf):
+            return score_pairs_fused(meta, ct.bits, fb, nw, ln, cf)
+    elif method in K2_METHODS:
+        tpl = pack_templates_mma(ct)
+
+        def scores(fb, nw, ln, cf):
+            overlap = overlap_pairs_mma(tpl, fb, ct.n_templates)
+            return dice_ref.finish_scores(ct, overlap, nw, ln, cf)
+    else:
+        raise ValueError(f"unknown scoring method: {method!r}")
+
+    def fn(file_bits, n_words, lengths, cc_fp):
+        fb = torch.from_numpy(
+            np.ascontiguousarray(file_bits, dtype=np.uint32).view(np.int32)
+        ).to(device)
+        nw = torch.from_numpy(np.asarray(n_words, dtype=np.int32)).to(device)
+        ln = torch.from_numpy(np.asarray(lengths, dtype=np.int32)).to(device)
+        cf = torch.from_numpy(np.asarray(cc_fp, dtype=bool)).to(device)
+        num, den = scores(fb, nw, ln, cf)
+        return tuple(t.cpu().numpy() for t in dice_ref.argmax_exact(num, den))
+
+    return fn

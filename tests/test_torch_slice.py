@@ -1,0 +1,192 @@
+"""The port's first slice end to end against the JAX package: the
+`BatchClassifier` rows and the `batch-detect` JSONL bytes on the test
+fixtures, the entry points' device contract, and the rule that the port
+imports nothing of JAX, PyYAML or `licensee_tpu`."""
+
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import jax  # noqa: F401 — both packages in one process, JAX on the CPU
+import pytest
+import torch
+
+from licensee_tpu.kernels.batch import BatchClassifier as JaxBatchClassifier
+from licensee_tpu.projects.batch_project import BatchProject as JaxBatchProject
+from licensee_tpu_torch.cli.main import main as port_main
+from licensee_tpu_torch.kernels.batch import BatchClassifier, BlobResult
+
+# one intra-op thread: the suite runs in several worker processes at
+# once, and torch's default of one thread per core would crowd them
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FIXTURES = os.path.join(REPO, "tests", "fixtures")
+# every license-like fixture file (the analyzer's Python fixtures aside):
+# 78 blobs, the .html one included
+FIXTURE_FILES = sorted(
+    os.path.join(d, f)
+    for d, _dirs, files in os.walk(FIXTURES)
+    if os.path.relpath(d, FIXTURES).split(os.sep)[0] != "analysis"
+    for f in files
+    if not f.endswith((".json", ".yml"))
+)
+
+
+@pytest.fixture(scope="module")
+def blobs():
+    contents = []
+    for path in FIXTURE_FILES:
+        with open(path, "rb") as f:
+            contents.append(f.read())
+    return contents, [os.path.basename(p) for p in FIXTURE_FILES]
+
+
+def rows(results):
+    """Each result as a dict of the port's BlobResult fields (the JAX rows
+    also carry closest/attribution, None in license mode)."""
+    names = [f.name for f in dataclasses.fields(BlobResult)]
+    return [{n: getattr(r, n) for n in names} for r in results]
+
+
+def test_fixture_set():
+    assert 70 <= len(FIXTURE_FILES) <= 100
+    assert any(p.endswith(".html") for p in FIXTURE_FILES)
+
+
+@pytest.mark.parametrize("method", ["pallas", "pallas-mxu"])
+def test_classify_blobs_matches_jax(blobs, method):
+    contents, names = blobs
+    ref = JaxBatchClassifier(method=method, mesh=None, pad_batch_to=128)
+    ours = BatchClassifier(method=method, device="cpu", pad_batch_to=128)
+    want = rows(ref.classify_blobs(contents, filenames=names))
+    assert rows(ours.classify_blobs(contents, filenames=names)) == want
+    matchers = {r["matcher"] for r in want}
+    assert {"dice", "exact", "copyright", None} <= matchers
+
+
+@pytest.mark.parametrize("method", ["auto", "popcount", "matmul"])
+def test_classify_blobs_other_methods_match_jax(blobs, method):
+    contents, names = blobs
+    ref = JaxBatchClassifier(method=method, mesh=None, pad_batch_to=128)
+    ours = BatchClassifier(method=method, device="cpu", pad_batch_to=32)
+    want = rows(ref.classify_blobs(contents, filenames=names))
+    assert rows(ours.classify_blobs(contents, filenames=names)) == want
+
+
+def write_manifest(tmp_path):
+    """The fixtures, plus a verbatim duplicate under another name, a
+    repeated path and a path that cannot be read."""
+    dup = tmp_path / "copy" / "LICENSE.txt"
+    dup.parent.mkdir()
+    shutil.copy(FIXTURE_FILES[5], dup)
+    paths = [*FIXTURE_FILES, str(dup), FIXTURE_FILES[3],
+             str(tmp_path / "missing" / "LICENSE")]
+    manifest = tmp_path / "manifest.txt"
+    manifest.write_text("\n".join(paths) + "\n", encoding="utf-8")
+    return str(manifest), paths
+
+
+def test_batch_detect_jsonl_matches_jax(tmp_path):
+    manifest, paths = write_manifest(tmp_path)
+    ref_out = tmp_path / "jax.jsonl"
+    JaxBatchProject(paths, method="pallas", mesh=None, tracer=False).run(
+        str(ref_out))
+    want = ref_out.read_bytes()
+    assert want.count(b"\n") == len(paths)
+    assert b'"error": "read_error"' in want
+    for extra in ([], ["--batch-size", "16", "--no-dedupe"]):
+        out = tmp_path / f"port{len(extra)}.jsonl"
+        rc = port_main(["batch-detect", manifest, "--output", str(out),
+                        "--method", "pallas", "--device", "cpu", *extra])
+        assert rc == 0
+        assert out.read_bytes() == want, extra
+
+
+def test_batch_detect_counts_and_dedupe(tmp_path):
+    from licensee_tpu_torch.projects.batch_project import BatchProject
+
+    _manifest, paths = write_manifest(tmp_path)
+    project = BatchProject(paths, batch_size=16, device="cpu")
+    stats = project.run(str(tmp_path / "out.jsonl"))
+    assert stats.total == len(paths)
+    assert stats.read_errors == 1
+    assert stats.dedupe_hits >= 2  # the copied file and the repeated path
+    assert stats.total == (
+        stats.prefiltered_copyright + stats.prefiltered_exact
+        + stats.dice_matched + stats.unmatched + stats.read_errors
+        + stats.featurize_errors + stats.skipped_oversized
+    )
+    assert 0 < stats.device_rows < stats.total
+
+
+def test_cuda_is_the_default_and_never_falls_back(tmp_path, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        BatchClassifier()
+    manifest, _paths = write_manifest(tmp_path)
+    out = tmp_path / "out.jsonl"
+    assert port_main(["batch-detect", manifest, "--output", str(out)]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert not out.exists()
+
+
+def test_waiting_features_raise():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchClassifier(mode="readme", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        BatchClassifier(closest=3, device="cpu")
+    with pytest.raises(ValueError):
+        BatchClassifier(method="bogus", device="cpu")
+
+
+def test_port_imports_no_jax_yaml_or_jax_package():
+    """Every module of the port, and chip_smoke.py, in a fresh process."""
+    code = (
+        "import pkgutil, importlib, sys\n"
+        "import licensee_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages("
+        "licensee_tpu_torch.__path__, 'licensee_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'yaml', 'licensee_tpu'))\n"
+        "print(len(names), bad)\n"
+        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                            capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stdout + result.stderr
+
+
+def test_chip_smoke_slice_manifest_on_cpu(tmp_path):
+    """chip_smoke.py's slice inputs (rendered templates, fixtures, seeded
+    mutations, one unreadable path) through the port's CLI on the CPU."""
+    import numpy as np
+
+    import chip_smoke
+
+    manifest = chip_smoke.write_manifest(np, str(tmp_path), 0, n_files=160)
+    with open(manifest, encoding="utf-8") as f:
+        paths = f.read().split()
+    assert len(paths) == 160
+    stats = chip_smoke.run_cli([
+        "batch-detect", manifest, "--output", str(tmp_path / "out.jsonl"),
+        "--method", "pallas-mxu", "--device", "cpu", "--stats"])
+    assert stats["total"] == 160 and stats["read_errors"] == 1
+    assert stats["device_rows"] > 50 and stats["dice_matched"] > 0
+
+
+def test_chip_smoke_fails_without_a_card_or_a_checkout(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), lone)
+    for cwd, script in ((REPO, "chip_smoke.py"), (tmp_path, str(lone))):
+        result = subprocess.run([sys.executable, script], cwd=cwd,
+                                capture_output=True, text=True, timeout=120)
+        assert result.returncode != 0
+        assert '"ok": true' not in result.stdout
