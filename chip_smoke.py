@@ -9,19 +9,26 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
 2. build: both kernels of `licensee_tpu_torch/csrc/` compiled by nvcc
    for sm_90a, with ptxas's register/shared-memory report;
 3. kernels: K1 (`score_pairs_fused`) and K2 (`overlap_pairs_mma`) on
-   seeded random features at the main path's shape (vendored width
-   T=47, W=112, one 4096-row batch) and at B=262144 at the vendored and
-   the synthetic-SPDX width (T=608, W=132), each held bit for bit
+   seeded random features at the main paths' shapes (one 4096-row batch
+   at the vendored width T=47, W=112 and at the synthetic-SPDX width
+   T=608, W=132) and at B=262144 at both widths, each held bit for bit
    against its plain PyTorch version on the card, then timed with CUDA
    events beside its plain version, the library call that computes the
    same function (K2: ``torch._int_mm`` on the unpacked operands) and
-   the least time the card could take (its bound);
+   the least time the card could take (its bound).  ``ms`` is the eager
+   call as the batch path makes it; ``device_ms`` the same call replayed
+   from a CUDA graph, without the host's launch overhead.  Then the
+   whole scorer per 4096-row batch (K1, and K2 plus the score algebra)
+   at both widths, the times `resolve_method`'s crossover rests on;
 4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
    (the vendored templates rendered with field values, the test
    fixtures, and seeded word-level mutations of both), once through K1
-   (--method pallas) and once through K2 (--method pallas-mxu); each
-   output must be byte-identical to the same run with --device cpu, and
-   each kernel must have launched during its run.
+   (--method pallas) and once through K2 (--method pallas-mxu); then
+   the wide slice, `batch-detect --corpus DIR` over a 608-template
+   synthetic SPDX directory (`corpus/spdx_synth.py`) on a ~1000-file
+   manifest of its rendered templates and their mutations, through both
+   kernels.  Each output must be byte-identical to the same run with
+   --device cpu, and each kernel must have launched during its run.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -51,11 +58,13 @@ INT8_TENSOR_OPS_PER_S = 1979e12
 CUDA_CORE_OPS_PER_S = 67e12
 
 MAIN_B = 4096  # batch-detect's default --batch-size: the main path's chunk
+SPDX_T = 608   # the synthetic SPDX directory's template count (W=132)
 SHAPES = [
-    # (label, B, T, W)
-    ("main", MAIN_B, 47, 112),
-    ("B262144,T47,W112", 262144, 47, 112),
-    ("B262144,T608,W132", 262144, 608, 132),
+    # (label, B, T, W, the slice run whose launches the row reports)
+    ("main", MAIN_B, 47, 112, "vendored"),
+    ("main608", MAIN_B, SPDX_T, 132, "spdx"),
+    ("B262144,T47,W112", 262144, 47, 112, "vendored"),
+    ("B262144,T608,W132", 262144, SPDX_T, 132, "spdx"),
 ]
 
 FIELD_VALUES = {
@@ -104,7 +113,7 @@ def phase_build() -> None:
     log(f"build: {len(build.sources())} sources -> {build.LIBRARY} in "
         f"{time.perf_counter() - t0:.1f} s")
     for line in report.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if any(k in line for k in ("registers", "spill", "Compiling", "C75")):
             log("  ptxas: " + line.strip())
     build.load_library()
 
@@ -130,6 +139,25 @@ def cuda_time_ms(torch, fn, min_total_s: float = 0.3, max_iters: int = 50):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(torch, fn, out_bytes: int):
+    """Device milliseconds per call of ``fn``: the call captured in a
+    CUDA graph (several times over where its output is small) and the
+    graph replayed, so the host's launch overhead drops out."""
+    reps = max(1, min(20, (256 << 20) // max(out_bytes, 1)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = cuda_time_ms(torch, graph.replay) / reps
+    del graph
+    return ms
 
 
 def random_case(np, torch, rng, B, T, W):
@@ -178,7 +206,7 @@ def phase_kernels(np, torch, seed: int) -> list[dict]:
 
     rng = np.random.default_rng(seed)
     rows = []
-    for label, B, T, W in SHAPES:
+    for label, B, T, W, run in SHAPES:
         ct, (fb, nw, ln, cf) = random_case(np, torch, rng, B, T, W)
         meta = dice_cuda.pack_meta(ct)
         tpl_i8 = dice_cuda.pack_templates_mma(ct)
@@ -203,8 +231,9 @@ def phase_kernels(np, torch, seed: int) -> list[dict]:
         k1_ops = 3 * B * T * W
         rows.append(kernel_row(
             torch, "score_pairs_fused" + suffix, "dice_score_fused.cu",
-            "licensee_tpu/kernels/dice_pallas.py:482", B, T, W, err,
+            "licensee_tpu/kernels/dice_pallas.py:482", B, T, W, run, err,
             k1, k1_plain, None, k1_bytes, k1_ops, CUDA_CORE_OPS_PER_S,
+            out_bytes=2 * B * T * 4,
         ))
 
         # K2: fused unpack + int8 tensor-core overlap
@@ -247,18 +276,41 @@ def phase_kernels(np, torch, seed: int) -> list[dict]:
         k2_ops = 2 * B * T * 32 * W
         rows.append(kernel_row(
             torch, "overlap_pairs_mma" + suffix, "dice_overlap_mma.cu",
-            "licensee_tpu/kernels/dice_pallas.py:355", B, T, W, err,
+            "licensee_tpu/kernels/dice_pallas.py:355", B, T, W, run, err,
             k2, k2_plain, k2_library, k2_bytes, k2_ops,
-            INT8_TENSOR_OPS_PER_S,
+            INT8_TENSOR_OPS_PER_S, out_bytes=B * T * 4,
         ))
+        if B == MAIN_B:
+            time_scorers(torch, label, ct, meta, tpl_i8, (fb, nw, ln, cf))
         del k2_library, lhs, ct, fb, nw, ln, cf, meta, tpl_i8
         torch.cuda.empty_cache()
     return rows
 
 
-def kernel_row(torch, name, source, replaces, B, T, W, err, fn, plain,
-               library, n_bytes, n_ops, ops_rate) -> dict:
+def time_scorers(torch, label, ct, meta, tpl_i8, feats) -> None:
+    """The whole score step of one batch as `make_best_match_fn` runs it
+    per method: K1 alone, or K2 and then the score algebra in PyTorch
+    (the argmax after both is the same)."""
+    from licensee_tpu_torch.kernels import dice_cuda, dice_ref
+
+    def k1():
+        return dice_cuda.score_pairs_fused(meta, ct.bits, *feats)
+
+    def k2():
+        overlap = dice_cuda.overlap_pairs_mma(tpl_i8, feats[0], ct.n_templates)
+        return dice_ref.finish_scores(ct, overlap, *feats[1:])
+
+    B, T = feats[0].shape[0], ct.n_templates
+    for method, fn in (("K1", k1), ("K2+algebra", k2)):
+        log(f"scorer {method} @{label}: B={B} T={T} "
+            f"ms={cuda_time_ms(torch, fn):.4f} "
+            f"device_ms={graph_time_ms(torch, fn, 2 * B * T * 4):.4f}")
+
+
+def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
+               library, n_bytes, n_ops, ops_rate, out_bytes) -> dict:
     ms = cuda_time_ms(torch, fn)
+    device_ms = graph_time_ms(torch, fn, out_bytes)
     plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5)
     library_ms = cuda_time_ms(torch, library) if library else None
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -268,17 +320,20 @@ def kernel_row(torch, name, source, replaces, B, T, W, err, fn, plain,
         "route": "cuda",
         "source": "licensee_tpu_torch/csrc/" + source,
         "replaces": replaces,
-        "launches": 0,  # filled from the main path's run (phase 4)
+        "launches": 0,  # filled from the slice run `run` (phase 4)
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
+        "device_ms": device_ms,
         "shape": {"B": B, "T": T, "W": W},
+        "slice_run": run,
     }
     log(f"kernel {name}: B={B} T={T} W={W} max_abs_err={err} "
-        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
+        f"plain_ms={plain_ms:.4f} library_ms="
         f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
         f"{n_bytes} bytes, {n_ops} ops)")
@@ -310,10 +365,11 @@ def mutate(text: str, rng, rate: float) -> str:
 
 
 def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
+    """The vendored slice's manifest: the vendored templates rendered with
+    field values and the test fixtures, then seeded mutations of them."""
     from licensee_tpu_torch.corpus.fields import field_regex
     from licensee_tpu_torch.corpus.license import License
 
-    rng = np.random.default_rng(seed)
     bases = []
     for lic in License.all(hidden=True, pseudo=False):
         text = field_regex().sub(
@@ -331,6 +387,25 @@ def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
                 raw = fh.read()
             if len(raw) <= 64 * 1024:
                 bases.append((f, raw.decode("utf-8", errors="ignore")))
+    return write_rows(np, root, bases, seed, n_files)
+
+
+def write_spdx_manifest(np, root: str, spdx_dir: str, seed: int,
+                        n_files: int = 1000) -> str:
+    """The wide slice's manifest: every template of an SPDX
+    license-list-XML directory as rendered text, then seeded mutations."""
+    from licensee_tpu_torch.corpus.spdx import load_spdx_dir
+
+    bases = [(f"{t.key}.LICENSE", t.content) for t in load_spdx_dir(spdx_dir)]
+    return write_rows(np, root, bases, seed, n_files)
+
+
+def write_rows(np, root: str, bases, seed: int, n_files: int) -> str:
+    """``n_files`` manifest rows under ``root``: the (name, text) bases
+    (as many as fit), seeded word-level mutations of them, and one path
+    that cannot be read."""
+    rng = np.random.default_rng(seed)
+    bases = bases[: n_files - 1]
     paths = []
     for i, (name, text) in enumerate(bases):
         path = os.path.join(root, f"b{i:04d}", name)
@@ -364,50 +439,75 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(err.getvalue().strip().splitlines()[-1])
 
 
-def phase_slice(np, torch, seed: int) -> dict:
+def run_slice(np, torch, run: str, root: str, manifest: str,
+              extra: list[str]) -> dict:
+    """`batch-detect` over ``manifest`` through K1 and K2, each on the card
+    and with --device cpu; returns each kernel's launches in its run."""
     from licensee_tpu_torch.kernels import dice_cuda
+
+    with open(manifest, encoding="utf-8") as fh:
+        n_rows = sum(1 for line in fh if line.strip())
+    launches = {}
+    for method, kernel in (("pallas", "score_pairs_fused"),
+                           ("pallas-mxu", "overlap_pairs_mma")):
+        outs = {}
+        for device in ("cpu", "cuda"):
+            out = os.path.join(root, f"{run}.{method}.{device}.jsonl")
+            argv = ["batch-detect", manifest, "--output", out, *extra,
+                    "--method", method, "--device", device, "--stats"]
+            if device == "cuda":
+                torch.cuda.synchronize()
+                dice_cuda.reset_launches()
+            t0 = time.perf_counter()
+            stats = run_cli(argv)
+            elapsed = time.perf_counter() - t0
+            if device == "cuda":
+                launches[kernel] = dice_cuda.LAUNCHES[kernel]
+            with open(out, "rb") as fh:
+                outs[device] = fh.read()
+            lines = outs[device].decode().splitlines()
+            if len(lines) != n_rows:
+                raise AssertionError(
+                    f"{run} {method}/{device}: {len(lines)} rows for "
+                    f"{n_rows} manifest entries")
+            for line in lines:
+                json.loads(line)
+            log(f"slice {run} {method} --device {device}: {n_rows} rows in "
+                f"{elapsed:.2f} s ({n_rows / elapsed:.1f} rows/s), "
+                f"dice-bound rows {stats['device_rows']}, dice matches "
+                f"{stats['dice_matched']}, stats {json.dumps(stats)}")
+        if outs["cuda"] != outs["cpu"]:
+            raise AssertionError(
+                f"{run} {method}: the cuda JSONL differs from the cpu JSONL")
+        if launches[kernel] < 1:
+            raise AssertionError(
+                f"{run} {method}: {kernel} never launched on the main path")
+        log(f"slice {run} {method}: cuda output byte-identical to cpu; "
+            f"{kernel} launches {launches[kernel]}")
+    return launches
+
+
+def phase_slice(np, torch, seed: int) -> dict:
+    """Both slices; returns {(run, kernel): launches}."""
+    from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        manifest = write_manifest(np, root, seed)
-        with open(manifest, encoding="utf-8") as fh:
-            n_rows = sum(1 for line in fh if line.strip())
-        for method, kernel in (("pallas", "score_pairs_fused"),
-                               ("pallas-mxu", "overlap_pairs_mma")):
-            outs = {}
-            for device in ("cpu", "cuda"):
-                out = os.path.join(root, f"{method}.{device}.jsonl")
-                argv = ["batch-detect", manifest, "--output", out,
-                        "--method", method, "--device", device, "--stats"]
-                if device == "cuda":
-                    torch.cuda.synchronize()
-                    dice_cuda.reset_launches()
-                t0 = time.perf_counter()
-                stats = run_cli(argv)
-                elapsed = time.perf_counter() - t0
-                if device == "cuda":
-                    launches[kernel] = dice_cuda.LAUNCHES[kernel]
-                with open(out, "rb") as fh:
-                    outs[device] = fh.read()
-                lines = outs[device].decode().splitlines()
-                if len(lines) != n_rows:
-                    raise AssertionError(
-                        f"{method}/{device}: {len(lines)} rows for "
-                        f"{n_rows} manifest entries")
-                for line in lines:
-                    json.loads(line)
-                log(f"slice {method} --device {device}: {n_rows} rows in "
-                    f"{elapsed:.2f} s ({n_rows / elapsed:.1f} rows/s), "
-                    f"dice-bound rows {stats['device_rows']}, dice matches "
-                    f"{stats['dice_matched']}, stats {json.dumps(stats)}")
-            if outs["cuda"] != outs["cpu"]:
-                raise AssertionError(
-                    f"{method}: the cuda JSONL differs from the cpu JSONL")
-            if launches[kernel] < 1:
-                raise AssertionError(
-                    f"{method}: {kernel} never launched on the main path")
-            log(f"slice {method}: cuda output byte-identical to cpu; "
-                f"{kernel} launches {launches[kernel]}")
+        vendored = os.path.join(root, "vendored")
+        manifest = write_manifest(np, vendored, seed)
+        for kernel, n in run_slice(np, torch, "vendored", root, manifest,
+                                   []).items():
+            launches["vendored", kernel] = n
+        t0 = time.perf_counter()
+        spdx_dir = synth_spdx_dir(os.path.join(root, "spdx-src"), SPDX_T,
+                                  seed)
+        manifest = write_spdx_manifest(np, os.path.join(root, "spdx"),
+                                       spdx_dir, seed)
+        log(f"slice spdx: {SPDX_T}-template synthetic SPDX directory and "
+            f"manifest written in {time.perf_counter() - t0:.1f} s")
+        for kernel, n in run_slice(np, torch, "spdx", root, manifest,
+                                   ["--corpus", spdx_dir]).items():
+            launches["spdx", kernel] = n
     return launches
 
 
@@ -430,7 +530,8 @@ def main() -> int:
     rows = phase_kernels(np, torch, args.seed)
     launches = phase_slice(np, torch, args.seed)
     for row in rows:
-        row["launches"] = launches[row["name"].split("@")[0]]
+        row["launches"] = launches[row.pop("slice_run"),
+                                   row["name"].split("@")[0]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

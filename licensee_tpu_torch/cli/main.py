@@ -1,8 +1,9 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m licensee_tpu_torch.cli.main batch-detect MANIFEST \\
-        --output OUT.jsonl [--method M] [--batch-size N] [--confidence N] \\
-        [--no-dedupe] [--device cuda|cpu] [--stats]
+        --output OUT.jsonl [--corpus vendored|spdx|DIR] [--method M] \\
+        [--batch-size N] [--confidence N] [--no-dedupe] [--device cuda|cpu] \\
+        [--stats]
 
 `batch-detect --mode license` classifies a manifest of loose files (one
 path per line) and writes JSONL rows byte-identical to the JAX package's
@@ -22,6 +23,35 @@ import sys
 from licensee_tpu_torch.kernels.batch import METHODS
 
 
+def load_corpus(source: str):
+    """The compiled corpus a ``--corpus`` value names, None for the
+    default (vendored) pool: ``spdx`` is the vendored SPDX
+    license-list-XML mirror, a directory an SPDX ``src/`` checkout (as
+    `licensee_tpu.corpus.artifact.resolve_corpus` reads them).  Raises
+    ValueError for a source it cannot load, NotImplementedError for a
+    corpus artifact file."""
+    if source == "vendored":
+        return None
+    if source == "spdx" or os.path.isdir(source):
+        from licensee_tpu_torch.corpus.spdx import spdx_corpus
+
+        corpus = spdx_corpus(None if source == "spdx" else source)
+        if not corpus.n_templates:
+            raise ValueError(
+                f"cannot load corpus {source!r}: no license templates found"
+            )
+        return corpus
+    if os.path.isfile(source):
+        raise NotImplementedError(
+            f"corpus artifact {source!r}: artifacts wait for a later slice "
+            "of the port (ROADMAP A, corpus artifacts)"
+        )
+    raise ValueError(
+        f"cannot load corpus {source!r}: not 'vendored', 'spdx' or an "
+        "SPDX license-list-XML src/ directory"
+    )
+
+
 def cmd_batch_detect(args) -> int:
     if not os.path.exists(args.manifest):
         print(
@@ -34,6 +64,7 @@ def cmd_batch_detect(args) -> int:
     try:
         project = BatchProject.from_manifest_file(
             args.manifest,
+            corpus=load_corpus(args.corpus),
             method=args.method,
             batch_size=args.batch_size,
             threshold=args.confidence,
@@ -73,12 +104,20 @@ def build_parser() -> argparse.ArgumentParser:
         "--output", required=True, help="Write the JSONL rows here"
     )
     batch.add_argument(
+        "--corpus", default="vendored",
+        help=(
+            "Template pool: 'vendored' (choosealicense, default), 'spdx' "
+            "(the vendored SPDX license-list XMLs), or a path to an SPDX "
+            "license-list-XML src/ directory (e.g. the full ~600-license set)"
+        ),
+    )
+    batch.add_argument(
         "--method", default="auto", choices=list(METHODS),
         help=(
-            "Device scoring path: auto, popcount and pallas run the fused "
+            "Device scoring path: popcount and pallas run the fused "
             "popcount kernel (K1); matmul and pallas-mxu the int8 "
-            "tensor-core kernel (K2).  On the CPU each runs its plain "
-            "PyTorch version."
+            "tensor-core kernel (K2); auto picks one by template count.  "
+            "On the CPU each runs its plain PyTorch version."
         ),
     )
     batch.add_argument(

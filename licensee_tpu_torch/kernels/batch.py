@@ -40,7 +40,26 @@ from licensee_tpu_torch.project_files.license_file import (
 from licensee_tpu_torch.project_files.project_file import sanitize_content
 from licensee_tpu_torch.rubytext import ruby_strip
 
-METHODS = dice_cuda.K1_METHODS + dice_cuda.K2_METHODS
+METHODS = ("auto",) + dice_cuda.K1_METHODS + dice_cuda.K2_METHODS
+
+# The kernel crossover on the card, as in the JAX package's table of the
+# same name (`licensee_tpu/kernels/batch.py`), but from the port's own
+# times: ascending (max_templates, method) rungs, None for everything
+# above.  It compares the whole score step of a 4096-row batch as the
+# batch path runs it (chip_smoke.py phase 3's "scorer" lines, PERF.md):
+# K1 fuses the score algebra, while K2 leaves it to a dozen PyTorch ops
+# whose launches cost more than K2 saves, at T=47 and at T=608 alike.
+# So K1 takes every width until the algebra and the argmax are fused
+# into K2's epilogue (ROADMAP, K4).
+METHOD_CROSSOVER: tuple = ((None, "popcount"),)
+
+
+def resolve_method(n_templates: int) -> str:
+    """The measured-best scoring method for a corpus of this width."""
+    for bound, method in METHOD_CROSSOVER:
+        if bound is None or n_templates <= bound:
+            return method
+    raise AssertionError("METHOD_CROSSOVER must end with a None rung")
 
 
 def resolve_device(device) -> torch.device:
@@ -114,11 +133,12 @@ class BatchClassifier:
     """Classify many blobs against a compiled corpus.
 
     Host side: sanitation, Copyright / Exact pre-filters, normalization +
-    tokenization into packed bitsets.  Device side: K1 (``auto``,
-    ``popcount``, ``pallas``) or K2 (``matmul``, ``pallas-mxu``), then the
-    exact argmax.  Scores come back to the host as exact (overlap,
-    denominator) pairs and are finished in float64 — bit-identical to the
-    scalar Ruby-semantics path.
+    tokenization into packed bitsets.  Device side: K1 (``popcount``,
+    ``pallas``) or K2 (``matmul``, ``pallas-mxu``; ``auto`` picks one by
+    template count, `resolve_method`), then the exact argmax.  Scores
+    come back to the host as exact (overlap, denominator) pairs and are
+    finished in float64 — bit-identical to the scalar Ruby-semantics
+    path.
     """
 
     def __init__(
@@ -147,9 +167,8 @@ class BatchClassifier:
         self.mode = mode
         self.device = resolve_device(device)
         self.corpus = corpus or default_corpus()
-        # the TPU-measured crossover table does not carry over: auto runs
-        # K1 (dice_cuda.K1_METHODS) until the port's own times decide
-        # otherwise (PERF.md)
+        if method == "auto":
+            method = resolve_method(self.corpus.n_templates)
         self.method = method
         self.pad_batch_to = pad_batch_to
         self.tensors = corpus_tensors(self.corpus, self.device)

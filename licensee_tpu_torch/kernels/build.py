@@ -33,8 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # meta, tpl, file, n_words, lengths, cc_fp, num, den, B, T, W, stream
     "dice_score_fused": [_P] * 8 + [_I] * 3 + [_P],
-    # tpl, file, out, B, T, W, t_pad, v_pad, stream
-    "dice_overlap_mma": [_P] * 3 + [_I] * 5 + [_P],
+    # tpl, file, out, B, T, W, t_pad, bn, splits, stream
+    "dice_overlap_mma": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

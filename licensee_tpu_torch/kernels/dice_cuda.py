@@ -8,9 +8,10 @@ TPU kernels become CUDA C++ in `licensee_tpu_torch/csrc/`:
   intersection and the exact int32 score algebra in one pass, giving
   (num, den) int32[B, T].
 * K2 `overlap_pairs_mma` (csrc/dice_overlap_mma.cu) replaces
-  `_make_mxu_kernel` behind `_overlap_mxu_padded`: the blob bits
-  unpacked on chip and contracted against the host-unpacked templates
-  on the int8 tensor cores, giving overlap int32[B, T].
+  `_make_mxu_kernel` behind `_overlap_mxu_padded`: the packed blob bits
+  spread into wgmma's register operand on chip and contracted against
+  the host-unpacked templates (TMA-fed shared memory) on the int8
+  tensor cores, giving overlap int32[B, T].
 
 Each wrapper runs the kernel for CUDA tensors and its plain PyTorch
 version (built on `kernels/dice_ref.py`) for CPU tensors, and counts its
@@ -19,6 +20,8 @@ kernel cannot take raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -35,11 +38,15 @@ LAUNCHES = {"score_pairs_fused": 0, "overlap_pairs_mma": 0}
 N_WF, N_FIELDSET, FIELD_COUNT, ALT_COUNT, LENGTH, CC_FLAG, VALID = range(7)
 META_COLS = 8
 
-# K2's tiling, mirrored from csrc/dice_overlap_mma.cu: the unpacked
-# template matrix is padded to whole blocks of templates and whole stages
-# of packed words, so the kernel's template reads never leave it
-MMA_TILE_T = 64
-MMA_STAGE_WORDS = 8
+# K2's tiling, mirrored from csrc/dice_overlap_mma.cu.  The unpacked
+# template matrix has T rounded up to MMA_TILE_T rows (wgmma's N comes in
+# steps of 16; rows past it arrive as TMA's zero fill) and 32 columns per
+# packed word, with W rounded up to whole 128-column stages
+# (MMA_STAGE_WORDS words; the kernel takes only W that are whole stages).
+MMA_TILE_T = 16
+MMA_STAGE_WORDS = 4
+MMA_BLOCK_B = 128  # blob rows per block
+MMA_TILE_N = (16, 48, 64, 128, 208)  # the compiled template tiles
 
 
 def reset_launches() -> None:
@@ -72,7 +79,8 @@ def pack_templates_mma(ct: CorpusTensors) -> torch.Tensor:
     T, W = ct.bits.shape
     unpacked = dice_ref.unpack_bits(ct.bits)
     out = torch.zeros(
-        (_round_up(max(T, 1), MMA_TILE_T), 32 * _round_up(W, MMA_STAGE_WORDS)),
+        (_round_up(max(T, 1), MMA_TILE_T),
+         32 * _round_up(W, MMA_STAGE_WORDS)),
         dtype=torch.int8,
         device=ct.bits.device,
     )
@@ -97,7 +105,31 @@ def _lib():
     return load_library()
 
 
+# the raw cudaStream_t of a device's current stream, as a Python int:
+# torch's private accessor (what its own generated code launches with)
+# skips building a `torch.cuda.Stream` object on every launch, a large
+# share of a small kernel's host time
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _launch(dev: torch.device, entry, *args) -> int:
+    """Call a C entry point with ``dev``'s current stream as its last
+    argument, on ``dev`` (switching the current device only if needed);
+    returns its cudaError_t."""
+    if dev.index != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return _launch(dev, entry, *args)
+    stream = (
+        _raw_stream(dev.index)
+        if _raw_stream is not None
+        else torch.cuda.current_stream(dev).cuda_stream
+    )
+    return entry(*args, stream)
+
+
 def _raise_on(err: int, kernel: str) -> None:
+    if err == -1:
+        raise RuntimeError(f"{kernel}: a TMA tensor map could not be encoded")
     if err != 0:
         raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
 
@@ -146,13 +178,12 @@ def score_pairs_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
     den = torch.empty((B, T), dtype=torch.int32, device=dev)
     if B == 0 or T == 0:
         return num, den
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().dice_score_fused(
-            meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
-            n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
-            num.data_ptr(), den.data_ptr(), B, T, W, stream,
-        )
+    err = _launch(
+        dev, _lib().dice_score_fused,
+        meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
+        n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
+        num.data_ptr(), den.data_ptr(), B, T, W,
+    )
     LAUNCHES["score_pairs_fused"] += 1
     _raise_on(err, "score_pairs_fused")
     return num, den
@@ -170,38 +201,72 @@ def overlap_pairs_mma_plain(tpl_unpacked, file_bits, n_templates: int):
     )
 
 
+@functools.lru_cache(maxsize=256)
+def mma_schedule(B: int, T: int, W: int, n_sms: int):
+    """K2's launch shape: (bn, splits).
+
+    ``bn`` is the narrowest compiled template tile (`MMA_TILE_N`) that
+    covers T in the fewest tiles of at most 208, so T=47 runs one tile
+    of 48 and T=608 three of 208.  Where the grid of (template tile,
+    128-row blob tile) pairs has fewer blocks than the card has SMs,
+    ``splits`` > 1 spreads the W/4 stages of the contraction over that
+    many blocks per pair, none of them empty, and their partial sums are
+    added into a zeroed output."""
+    t16 = _round_up(max(T, 1), MMA_TILE_T)
+    want = _round_up(-(-t16 // -(-t16 // MMA_TILE_N[-1])), MMA_TILE_T)
+    bn = min(n for n in MMA_TILE_N if n >= want)
+    grid = -(-T // bn) * -(-B // MMA_BLOCK_B)
+    n_stages = max(1, W // MMA_STAGE_WORDS)
+    splits = 1
+    if grid < n_sms:
+        splits = min(n_stages, max(1, n_sms // grid))
+        per = -(-n_stages // splits)
+        splits = -(-n_stages // per)
+    return bn, splits
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def overlap_pairs_mma(tpl_unpacked, file_bits, n_templates: int):
     """overlap int32[B, T] = unpack(file_bits) · unpack(templates)ᵀ.
 
     ``tpl_unpacked`` int8[T_pad, V_pad] (`pack_templates_mma`),
-    ``file_bits`` int32[B, W] (uint32 bitsets viewed as int32),
-    ``n_templates`` the T of the output."""
+    ``file_bits`` int32[B, W] (uint32 bitsets viewed as int32; W a
+    multiple of 4), ``n_templates`` the T of the output."""
     if file_bits.device.type != "cuda":
         return overlap_pairs_mma_plain(tpl_unpacked, file_bits, n_templates)
     B, W = file_bits.shape
     T = int(n_templates)
     t_pad, v_pad = tpl_unpacked.shape
     dev = file_bits.device
-    if (
-        t_pad % MMA_TILE_T
-        or T > t_pad
-        or v_pad != 32 * _round_up(W, MMA_STAGE_WORDS)
-    ):
+    if W % MMA_STAGE_WORDS:
+        raise ValueError(
+            f"overlap_pairs_mma loads 128-column stages with TMA: W={W} "
+            "must be a multiple of 4 (compile the corpus with lane_align=4)"
+        )
+    if t_pad % MMA_TILE_T or T > t_pad or v_pad != 32 * W:
         raise ValueError(
             f"tpl_unpacked {tuple(tpl_unpacked.shape)} does not fit "
             f"T={T}, W={W} (see pack_templates_mma)"
         )
     _check(tpl_unpacked, "tpl_unpacked", torch.int8, (t_pad, v_pad), dev)
     _check(file_bits, "file_bits", torch.int32, (B, W), dev)
-    out = torch.empty((B, T), dtype=torch.int32, device=dev)
+    if file_bits.data_ptr() % 16 or tpl_unpacked.data_ptr() % 16:
+        raise ValueError("overlap_pairs_mma: TMA needs 16-byte aligned operands")
     if B == 0 or T == 0:
-        return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().dice_overlap_mma(
-            tpl_unpacked.data_ptr(), file_bits.data_ptr(), out.data_ptr(),
-            B, T, W, t_pad, v_pad, stream,
-        )
+        return torch.empty((B, T), dtype=torch.int32, device=dev)
+    bn, splits = mma_schedule(B, T, W, _sm_count(dev.index))
+    # where the stages are split, the C entry point zeroes `out` on the
+    # stream before the blocks add their partial sums into it
+    out = torch.empty((B, T), dtype=torch.int32, device=dev)
+    err = _launch(
+        dev, _lib().dice_overlap_mma,
+        tpl_unpacked.data_ptr(), file_bits.data_ptr(), out.data_ptr(),
+        B, T, W, t_pad, bn, splits,
+    )
     LAUNCHES["overlap_pairs_mma"] += 1
     _raise_on(err, "overlap_pairs_mma")
     return out
@@ -211,7 +276,7 @@ def overlap_pairs_mma(tpl_unpacked, file_bits, n_templates: int):
 
 # --method names, kept from the JAX package's CLI; in this port each
 # runs one of the two kernels on the card and its plain version on the CPU
-K1_METHODS = ("auto", "popcount", "pallas")
+K1_METHODS = ("popcount", "pallas")
 K2_METHODS = ("matmul", "pallas-mxu")
 
 

@@ -1,5 +1,6 @@
 """The port on the card: both CUDA kernels against their plain versions,
-and `batch-detect` through each kernel against the `--device cpu` run.
+and `batch-detect` through each kernel against the `--device cpu` run,
+over the vendored corpus and over a synthetic SPDX directory.
 
 These need a CUDA device and skip elsewhere.  They import neither JAX nor
 the JAX package, so they run on the machine with the card:
@@ -7,6 +8,7 @@ the JAX package, so they run on the machine with the card:
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -16,7 +18,8 @@ import torch
 from licensee_tpu_torch import convert
 from licensee_tpu_torch.cli.main import main as port_main
 from licensee_tpu_torch.corpus.compiler import default_corpus
-from licensee_tpu_torch.kernels import dice_cuda
+from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
+from licensee_tpu_torch.kernels import dice_cuda, dice_ref
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "fixtures")
@@ -56,6 +59,32 @@ def test_kernels_match_plain_versions(card, B):
     )
 
 
+@pytest.mark.parametrize("W", [4, 112, 132])
+@pytest.mark.parametrize("T", [1, 8, 47, 48, 49, 608])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 4097])
+def test_mma_kernel_matches_plain_at_ragged_shapes(card, B, T, W):
+    """K2 on random bits at ragged B, T and W, with the V stages split
+    over blocks (small grids) and not (B=4097 at T=608)."""
+    rng = np.random.default_rng(B * 1000 + T * 10 + W)
+    bits = torch.from_numpy(
+        rng.integers(0, 2**32, (T, W), dtype=np.uint32).view(np.int32)).to(card)
+    fb = torch.from_numpy(
+        rng.integers(0, 2**32, (B, W), dtype=np.uint32).view(np.int32)).to(card)
+    zeros = torch.zeros(T, dtype=torch.int32, device=card)
+    ct = dice_ref.CorpusTensors(bits, zeros, zeros, zeros, zeros, zeros,
+                                zeros.bool(), ~zeros.bool())
+    tpl = dice_cuda.pack_templates_mma(ct)
+    got = dice_cuda.overlap_pairs_mma(tpl, fb, T)
+    want = dice_cuda.overlap_pairs_mma_plain(tpl, fb, T)
+    assert torch.equal(got, want)
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits = dice_cuda.mma_schedule(B, T, W, n_sms)[1]
+    if (B, T, W) == (4097, 608, 132):
+        assert splits == 1
+    if (B, T, W) == (1, 47, 112):
+        assert splits > 1
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_take(card):
     ct = convert.corpus_tensors(default_corpus(), card)
     meta = dice_cuda.pack_meta(ct)
@@ -67,6 +96,32 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(card):
     with pytest.raises(TypeError):
         dice_cuda.score_pairs_fused(
             meta, ct.bits, ct.bits, ones.float(), ones, flags)
+    narrow = dataclasses.replace(ct, bits=fb)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dice_cuda.overlap_pairs_mma(
+            dice_cuda.pack_templates_mma(narrow), fb, ct.n_templates)
+
+
+def test_batch_detect_corpus_dir_on_the_card_matches_cpu(card, tmp_path):
+    """`batch-detect --corpus DIR` over a 300-template synthetic SPDX
+    directory (two 208-wide K2 tiles) on the card and on the CPU."""
+    import chip_smoke
+
+    spdx_dir = synth_spdx_dir(str(tmp_path / "src"), 300, seed=1)
+    manifest = chip_smoke.write_spdx_manifest(np, str(tmp_path / "rows"),
+                                              spdx_dir, seed=2, n_files=400)
+    for method, kernel in (("pallas", "score_pairs_fused"),
+                           ("pallas-mxu", "overlap_pairs_mma")):
+        outs = []
+        for device in ("cpu", "cuda"):
+            dice_cuda.reset_launches()
+            out = tmp_path / f"{method}.{device}.jsonl"
+            assert port_main(["batch-detect", manifest, "--output", str(out),
+                              "--corpus", spdx_dir, "--method", method,
+                              "--device", device]) == 0
+            outs.append(out.read_bytes())
+        assert dice_cuda.LAUNCHES[kernel] > 0
+        assert outs[0] == outs[1]
 
 
 def test_batch_detect_on_the_card_matches_cpu(card, tmp_path):

@@ -212,16 +212,93 @@ def test_mma_overlap_plain_matches_pallas_kernel(corpus, B):
 
 
 def test_mma_template_operand_layout(corpus):
-    """K2's template operand is the lane-major unpack of dice_xla, padded
-    to whole kernel tiles with zeros."""
+    """K2's template operand is the lane-major unpack of dice_xla, with T
+    padded to wgmma's steps of 16 (47 -> 48) and zero padding rows."""
     ct = to_port(corpus)
     tpl = dice_cuda.pack_templates_mma(ct).numpy()
     T, W = corpus.n_templates, corpus.n_lanes
-    assert tpl.shape[0] % dice_cuda.MMA_TILE_T == 0
-    assert tpl.shape[1] == 32 * -(-W // dice_cuda.MMA_STAGE_WORDS) * dice_cuda.MMA_STAGE_WORDS
+    assert (T, W) == (47, 112)
+    assert tpl.shape == (48, 32 * W)
     want = np.asarray(dice_xla._unpack_bits(np.asarray(corpus.bits)))
-    np.testing.assert_array_equal(tpl[:T, : 32 * W], want)
-    assert not tpl[T:].any() and not tpl[:, 32 * W:].any()
+    np.testing.assert_array_equal(tpl[:T], want)
+    assert not tpl[T:].any()
+    # a width that is not whole 4-word stages pads its columns with zeros
+    narrow = dataclasses.replace(ct, bits=ct.bits[:5, :6].contiguous())
+    tpl = dice_cuda.pack_templates_mma(narrow).numpy()
+    assert tpl.shape == (16, 32 * 8) and not tpl[:, 32 * 6:].any()
+
+
+def spread_nibble(x):
+    """csrc/dice_overlap_mma.cu's spread_nibble on uint32 numpy arrays."""
+    return ((x & 0xF) * np.uint32(0x00204081)) & np.uint32(0x01010101)
+
+
+def test_mma_a_fragments_reassemble_the_unpacked_blobs():
+    """K2's register-A operand built from packed words exactly as the
+    kernel builds it, per (warp, lane, k-step) of a 128-row block, then
+    placed where wgmma's m64nNk32 fragment layout puts each byte: every
+    element of the unpacked block is written once, equal to unpack_bits."""
+    rng = np.random.default_rng(4)
+    W = 8  # two 128-column stages
+    words = rng.integers(0, 2**32, size=(dice_cuda.MMA_BLOCK_B, W),
+                         dtype=np.uint32)
+    got = np.full((dice_cuda.MMA_BLOCK_B, 32 * W), -1, dtype=np.int64)
+    for stage in range(W // dice_cuda.MMA_STAGE_WORDS):
+        tile = words[:, 4 * stage: 4 * stage + 4]  # the TMA'd [128, 4] words
+        for warp in range(8):
+            for lane in range(32):
+                g, tig = lane >> 2, lane & 3
+                r = (warp // 4) * 64 + (warp % 4) * 16 + g
+                for kk in range(4):
+                    lo, hi = tile[r, kk], tile[r + 8, kk]
+                    a = [spread_nibble(lo >> (4 * tig)),
+                         spread_nibble(hi >> (4 * tig)),
+                         spread_nibble(lo >> (16 + 4 * tig)),
+                         spread_nibble(hi >> (16 + 4 * tig))]
+                    # register q holds 4 consecutive K elements of row
+                    # g (+8 for odd q), columns 4*tig (+16 for q >= 2)
+                    for q, reg in enumerate(a):
+                        row = r + 8 * (q & 1)
+                        col = stage * 128 + kk * 32 + 16 * (q >> 1) + 4 * tig
+                        for i in range(4):
+                            assert got[row, col + i] == -1
+                            got[row, col + i] = (int(reg) >> (8 * i)) & 0xFF
+    want = dice_ref.unpack_bits(torch.from_numpy(words.view(np.int32)))
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("bn", dice_cuda.MMA_TILE_N)
+def test_mma_accumulator_stores_cover_the_tile_once(bn):
+    """K2's epilogue: d[4j..4j+3] of each consumer thread go to rows r and
+    r + 8, columns 8j + 2*tig (+1); together they cover [128, bn] once."""
+    seen = np.zeros((dice_cuda.MMA_BLOCK_B, bn), dtype=np.int64)
+    for warp in range(8):
+        for lane in range(32):
+            g, tig = lane >> 2, lane & 3
+            r = (warp // 4) * 64 + (warp % 4) * 16 + g
+            for j in range(bn // 8):
+                for row in (r, r + 8):
+                    seen[row, 8 * j + 2 * tig: 8 * j + 2 * tig + 2] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B, T, W, want", [
+    (4096, 47, 112, (48, 4)),     # the main path: V split over 4 blocks
+    (4096, 608, 132, (208, 1)),   # three tiles of 208 templates
+    (262144, 47, 112, (48, 1)),
+    (262144, 608, 132, (208, 1)),
+    (65, 49, 132, (64, 33)),
+    (1, 1, 4, (16, 1)),
+    (4097, 300, 8, (208, 2)),
+])
+def test_mma_schedule(B, T, W, want):
+    bn, splits = got = dice_cuda.mma_schedule(B, T, W, n_sms=132)
+    assert got == want
+    n_tiles = -(-T // bn)
+    assert bn in dice_cuda.MMA_TILE_N and n_tiles == -(-T // 208)
+    stages = W // dice_cuda.MMA_STAGE_WORDS
+    per = -(-stages // splits)
+    assert (splits - 1) * per < stages  # no split is empty
 
 
 def test_best_match_fn_methods_agree(corpus):
@@ -234,8 +311,9 @@ def test_best_match_fn_methods_agree(corpus):
         ours = dice_cuda.make_best_match_fn(ct, method)(*feats)
         for a, b in zip(ours, ref):
             np.testing.assert_array_equal(a, np.asarray(b))
-    with pytest.raises(ValueError):
-        dice_cuda.make_best_match_fn(ct, "closest")
+    for method in ("closest", "auto"):  # auto is resolved before this
+        with pytest.raises(ValueError):
+            dice_cuda.make_best_match_fn(ct, method)
 
 
 def test_plain_versions_count_no_launches(corpus):

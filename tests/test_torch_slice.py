@@ -143,6 +143,18 @@ def test_waiting_features_raise():
         BatchClassifier(method="bogus", device="cpu")
 
 
+def test_auto_resolves_by_template_count():
+    """``auto`` picks K1 or K2 by the corpus's width, from the port's own
+    crossover table; the rows do not depend on the pick."""
+    from licensee_tpu_torch.kernels import batch, dice_cuda
+
+    ours = BatchClassifier(method="auto", device="cpu")
+    assert ours.method == batch.resolve_method(47)
+    for T in (1, 47, 128, 129, 608, 5000):
+        assert batch.resolve_method(T) in dice_cuda.K1_METHODS + dice_cuda.K2_METHODS
+    assert batch.METHOD_CROSSOVER[-1][0] is None
+
+
 def test_port_imports_no_jax_yaml_or_jax_package():
     """Every module of the port, and chip_smoke.py, in a fresh process."""
     code = (
@@ -154,8 +166,10 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'yaml', 'licensee_tpu'))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 20 else 0)\n"
+        "new = {'licensee_tpu_torch.corpus.spdx', "
+        "'licensee_tpu_torch.corpus.spdx_synth'}\n"
+        "print(len(names), bad, sorted(new - set(names)))\n"
+        "sys.exit(1 if bad or len(names) < 22 or new - set(names) else 0)\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
