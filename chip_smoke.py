@@ -17,7 +17,9 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    same function (K2: ``torch._int_mm`` on the unpacked operands) and
    the least time the card could take (its bound).  ``ms`` is the eager
    call as the batch path makes it; ``device_ms`` the same call replayed
-   from a CUDA graph, without the host's launch overhead.  Then the
+   from a CUDA graph, without the host's launch overhead (the library
+   call is timed both ways too: ``library_ms``, ``library_device_ms``).
+   Then the
    whole scorer per 4096-row batch (K1, and K2 plus the score algebra)
    at both widths, the times `resolve_method`'s crossover rests on;
 4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
@@ -312,7 +314,10 @@ def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
     ms = cuda_time_ms(torch, fn)
     device_ms = graph_time_ms(torch, fn, out_bytes)
     plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5)
-    library_ms = cuda_time_ms(torch, library) if library else None
+    library_ms = library_device_ms = None
+    if library:
+        library_ms = cuda_time_ms(torch, library)
+        library_device_ms = graph_time_ms(torch, library, out_bytes)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / ops_rate * 1e3
     row = {
@@ -328,13 +333,18 @@ def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": library_ms,
         "device_ms": device_ms,
+        "library_device_ms": library_device_ms,
         "shape": {"B": B, "T": T, "W": W},
         "slice_run": run,
     }
+
+    def fmt(x):
+        return "null" if x is None else f"{x:.4f}"
+
     log(f"kernel {name}: B={B} T={T} W={W} max_abs_err={err} "
         f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
-        f"plain_ms={plain_ms:.4f} library_ms="
-        f"{'null' if library_ms is None else f'{library_ms:.4f}'} "
+        f"plain_ms={plain_ms:.4f} library_ms={fmt(library_ms)} "
+        f"library_device_ms={fmt(library_device_ms)} "
         f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
         f"{n_bytes} bytes, {n_ops} ops)")
     return row

@@ -419,9 +419,9 @@ template <int BN>
 int launch(const CUtensorMap& tpl_map, const CUtensorMap& file_map, int* out,
            int B, int T, int n_stages, int splits, cudaStream_t stream) {
   using L = K2Layout<BN>;
-  // once per tile width and process, off the launch path (and out of any
-  // CUDA graph a caller captures the launch into)
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // on every launch: the limit belongs to the current device's context,
+  // and the call is cheap next to the tensor maps' encoding
+  const cudaError_t attr = cudaFuncSetAttribute(
       dice_overlap_wgmma_kernel<BN>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, L::kDynamicSmem);
   if (attr != cudaSuccess) return static_cast<int>(attr);

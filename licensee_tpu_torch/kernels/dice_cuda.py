@@ -41,8 +41,7 @@ META_COLS = 8
 # K2's tiling, mirrored from csrc/dice_overlap_mma.cu.  The unpacked
 # template matrix has T rounded up to MMA_TILE_T rows (wgmma's N comes in
 # steps of 16; rows past it arrive as TMA's zero fill) and 32 columns per
-# packed word, with W rounded up to whole 128-column stages
-# (MMA_STAGE_WORDS words; the kernel takes only W that are whole stages).
+# packed word; W must be whole 128-column stages of MMA_STAGE_WORDS words.
 MMA_TILE_T = 16
 MMA_STAGE_WORDS = 4
 MMA_BLOCK_B = 128  # blob rows per block
@@ -74,17 +73,21 @@ def pack_meta(ct: CorpusTensors) -> torch.Tensor:
 
 
 def pack_templates_mma(ct: CorpusTensors) -> torch.Tensor:
-    """K2's template operand, unpacked once: int8[T_pad, V_pad] with bit
-    i of lane w at column 32·w + i (zero padding rows and columns)."""
+    """K2's template operand, unpacked once: int8[T_pad, 32·W] with bit
+    i of lane w at column 32·w + i (zero padding rows).  W must be whole
+    stages of 4 words, as the kernel takes them (lane_align=4)."""
     T, W = ct.bits.shape
-    unpacked = dice_ref.unpack_bits(ct.bits)
+    if W % MMA_STAGE_WORDS:
+        raise ValueError(
+            f"K2 takes whole 128-column stages: W={W} must be a multiple "
+            "of 4 (compile the corpus with lane_align=4)"
+        )
     out = torch.zeros(
-        (_round_up(max(T, 1), MMA_TILE_T),
-         32 * _round_up(W, MMA_STAGE_WORDS)),
+        (_round_up(max(T, 1), MMA_TILE_T), 32 * W),
         dtype=torch.int8,
         device=ct.bits.device,
     )
-    out[:T, : 32 * W] = unpacked
+    out[:T] = dice_ref.unpack_bits(ct.bits)
     return out
 
 
@@ -105,26 +108,18 @@ def _lib():
     return load_library()
 
 
-# the raw cudaStream_t of a device's current stream, as a Python int:
-# torch's private accessor (what its own generated code launches with)
-# skips building a `torch.cuda.Stream` object on every launch, a large
-# share of a small kernel's host time
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
 def _launch(dev: torch.device, entry, *args) -> int:
     """Call a C entry point with ``dev``'s current stream as its last
     argument, on ``dev`` (switching the current device only if needed);
-    returns its cudaError_t."""
+    returns its cudaError_t.
+
+    The stream comes from torch's raw accessor (what its own generated
+    code launches with), which skips building a `torch.cuda.Stream`
+    object on every launch, a large share of a small kernel's host time."""
     if dev.index != torch.cuda.current_device():
         with torch.cuda.device(dev):
             return _launch(dev, entry, *args)
-    stream = (
-        _raw_stream(dev.index)
-        if _raw_stream is not None
-        else torch.cuda.current_stream(dev).cuda_stream
-    )
-    return entry(*args, stream)
+    return entry(*args, torch._C._cuda_getCurrentRawStream(dev.index))
 
 
 def _raise_on(err: int, kernel: str) -> None:

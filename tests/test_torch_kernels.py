@@ -213,7 +213,9 @@ def test_mma_overlap_plain_matches_pallas_kernel(corpus, B):
 
 def test_mma_template_operand_layout(corpus):
     """K2's template operand is the lane-major unpack of dice_xla, with T
-    padded to wgmma's steps of 16 (47 -> 48) and zero padding rows."""
+    padded to wgmma's steps of 16 (47 -> 48) and zero padding rows; a
+    width that is not whole 4-word stages is refused, as the kernel
+    refuses it."""
     ct = to_port(corpus)
     tpl = dice_cuda.pack_templates_mma(ct).numpy()
     T, W = corpus.n_templates, corpus.n_lanes
@@ -222,10 +224,9 @@ def test_mma_template_operand_layout(corpus):
     want = np.asarray(dice_xla._unpack_bits(np.asarray(corpus.bits)))
     np.testing.assert_array_equal(tpl[:T], want)
     assert not tpl[T:].any()
-    # a width that is not whole 4-word stages pads its columns with zeros
     narrow = dataclasses.replace(ct, bits=ct.bits[:5, :6].contiguous())
-    tpl = dice_cuda.pack_templates_mma(narrow).numpy()
-    assert tpl.shape == (16, 32 * 8) and not tpl[:, 32 * 6:].any()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dice_cuda.pack_templates_mma(narrow)
 
 
 def spread_nibble(x):

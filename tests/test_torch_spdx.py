@@ -83,13 +83,15 @@ def test_load_corpus_sources(synth_dirs, tmp_path):
 
 @pytest.fixture(scope="module")
 def spdx_manifest(synth_dirs, tmp_path_factory):
-    """A few dozen rows: rendered synthetic templates, seeded mutations
-    of them and one unreadable path (chip_smoke.py's wide-slice rows)."""
+    """40 rows as chip_smoke.py writes its wide slice's: 24 rendered
+    synthetic templates, 15 seeded mutations of them and one unreadable
+    path (few rows: the interpret-mode JAX run is the test's cost)."""
     import chip_smoke
 
     root = str(tmp_path_factory.mktemp("rows"))
-    manifest = chip_smoke.write_spdx_manifest(np, root, synth_dirs[0], seed=5,
-                                              n_files=N_TEMPLATES + 16)
+    bases = [(f"{t.key}.LICENSE", t.content)
+             for t in spdx.load_spdx_dir(synth_dirs[0])[:24]]
+    manifest = chip_smoke.write_rows(np, root, bases, seed=5, n_files=40)
     with open(manifest, encoding="utf-8") as f:
         return manifest, f.read().split()
 
