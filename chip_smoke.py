@@ -19,9 +19,9 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    call as the batch path makes it; ``device_ms`` the same call replayed
    from a CUDA graph, without the host's launch overhead (the library
    call is timed both ways too: ``library_ms``, ``library_device_ms``).
-   Then the
-   whole scorer per 4096-row batch (K1, and K2 plus the score algebra)
-   at both widths, the times `resolve_method`'s crossover rests on;
+   Then the whole scorer per 4096-row batch (K1, and K2 plus the score
+   algebra) at both widths, the times `resolve_method`'s crossover
+   rests on;
 4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
    (the vendored templates rendered with field values, the test
    fixtures, and seeded word-level mutations of both), once through K1
