@@ -4,24 +4,29 @@
 
 Run from the root of a checkout on a machine with a CUDA card.  Phases:
 
-1. device: the card's name and power limit (nvidia-smi), its torch name
-   and the device count;
-2. build: both kernels of `licensee_tpu_torch/csrc/` compiled by nvcc
-   for sm_90a, with ptxas's register/shared-memory report;
-3. kernels: K1 (`score_pairs_fused`) and K2 (`overlap_pairs_mma`) on
-   seeded random features at the main paths' shapes (one 4096-row batch
-   at the vendored width T=47, W=112 and at the synthetic-SPDX width
-   T=608, W=132) and at B=262144 at both widths, each held bit for bit
-   against its plain PyTorch version on the card, then timed with CUDA
-   events beside its plain version, the library call that computes the
-   same function (K2: ``torch._int_mm`` on the unpacked operands) and
-   the least time the card could take (its bound).  ``ms`` is the eager
-   call as the batch path makes it; ``device_ms`` the same call replayed
-   from a CUDA graph, without the host's launch overhead (the library
-   call is timed both ways too: ``library_ms``, ``library_device_ms``).
-   Then the whole scorer per 4096-row batch (K1, and K2 plus the score
-   algebra) at both widths, the times `resolve_method`'s crossover
-   rests on;
+1. device: the card's name and power limit (nvidia-smi), its torch name,
+   the device count, its SM count and maximum SM clock;
+2. build: both kernel sources of `licensee_tpu_torch/csrc/` compiled by
+   nvcc for sm_90a, with ptxas's register/shared-memory report;
+3. kernels: K1 and K2 on seeded random features at the main paths'
+   shapes (one 4096-row batch at the vendored width T=47, W=112 and at
+   the synthetic-SPDX width T=608, W=132) and at B=262144 at both
+   widths: K1 as the fused first-max the batch path runs
+   (`best_match_fused`) and as the [B, T] planes (`score_pairs_fused`),
+   K2 as `overlap_pairs_mma`.  Each is held bit for bit against its
+   plain PyTorch version on the card, then timed with CUDA events beside
+   its plain version, the library call that computes the same function
+   (K2: ``torch._int_mm`` on the unpacked operands) and the least time
+   the card could take (its bound).  ``ms`` is the eager call as the
+   batch path makes it; ``device_ms`` the same call replayed from a CUDA
+   graph, without the host's launch overhead (the library call is timed
+   both ways too: ``library_ms``, ``library_device_ms``).  The fused K1
+   also runs at B=512 at both widths (the size of the slices' real
+   Dice-bound chunks) and on a case of exact ties across the kernel's
+   template splits and all-excluded rows.  Then the whole score step per
+   4096-row batch, the argmax included, at both widths (K1 fused against
+   K2 plus the score algebra and the argmax in PyTorch): the times
+   `resolve_method`'s crossover rests on;
 4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
    (the vendored templates rendered with field values, the test
    fixtures, and seeded word-level mutations of both), once through K1
@@ -30,7 +35,10 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    synthetic SPDX directory (`corpus/spdx_synth.py`) on a ~1000-file
    manifest of its rendered templates and their mutations, through both
    kernels.  Each output must be byte-identical to the same run with
-   --device cpu, and each kernel must have launched during its run.
+   --device cpu, each kernel must have launched during its run, and the
+   K1 runs must have run neither the planes kernel nor an argmax on the
+   card.  A row's ``launches`` counts its kernel over its width's card
+   runs; the planes kernel is on no main path and shows 0.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -52,12 +60,26 @@ import sys
 import tempfile
 import time
 
-# published peaks of one H100 SXM (dense, 700 W): HBM rate, int8 tensor
-# cores, and the 32-bit CUDA-core rate (the FP32 figure: the table has no
-# separate integer rate, so K1's bound counts its AND/POPC/ADD there)
+# published peaks of one H100 SXM (dense, 700 W): the HBM rate and the
+# int8 tensor cores (K2)
 HBM_BYTES_PER_S = 3.35e12
 INT8_TENSOR_OPS_PER_S = 1979e12
-CUDA_CORE_OPS_PER_S = 67e12
+# K1's units, per SM and clock (times the SM count and the card's maximum
+# SM clock, `nvidia-smi --query-gpu=clocks.max.sm`): 64 results of 32-bit
+# logic or integer add on the CUDA cores (the CUDA C++ Programming
+# Guide's throughput table, compute capability 9.0; population counts
+# get 16), and 1024 pair-words (32-bit AND-then-popcount products) on the
+# single-bit tensor cores: 8x the int8 rate of 4096 multiply-adds a clock,
+# the binary-to-int8 ratio NVIDIA published for the A100 (it publishes no
+# binary rate for Hopper)
+INT_OPS_PER_CLK_SM = 64
+B1_PAIR_WORDS_PER_CLK_SM = 1024
+# K1's integer operations per (blob, template) pair besides the overlap:
+# the score algebra (|len_t - len_b| - slack: sub, abs, sub; the clamp;
+# shift and two adds; the exclusion test; num's select; denom <= 0 and
+# den's select) 10, and for the first-max the exact compare (two int64
+# products, a compare, the update) 4 more
+K1_PAIR_OPS = {"planes": 10, "best": 14}
 
 MAIN_B = 4096  # batch-detect's default --batch-size: the main path's chunk
 SPDX_T = 608   # the synthetic SPDX directory's template count (W=132)
@@ -68,6 +90,13 @@ SHAPES = [
     ("B262144,T47,W112", 262144, 47, 112, "vendored"),
     ("B262144,T608,W132", 262144, SPDX_T, 132, "spdx"),
 ]
+# the fused K1 also at the size of the slices' real Dice-bound chunks
+# (347 to 1565 rows), and on a case of exact ties and excluded rows
+SMALL_SHAPES = [
+    ("B512,T47,W112", 512, 47, 112, "vendored"),
+    ("B512,T608,W132", 512, SPDX_T, 132, "spdx"),
+]
+TIES_SHAPE = ("ties,B347,T608,W132", 347, SPDX_T, 132, "spdx")
 
 FIELD_VALUES = {
     "fullname": "Ben Balter",
@@ -87,21 +116,28 @@ def log(msg: str) -> None:
 # -- phase 1: device ---------------------------------------------------------
 
 
-def phase_device(torch) -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+def smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
-    log(smi.splitlines()[0])
+    ).stdout.strip().splitlines()[0]
+
+
+def phase_device(torch) -> tuple[dict, float]:
+    """The last line's device object, and the card's SM count times its
+    maximum SM clock (SM-clocks per second, for K1's bound)."""
+    log(smi("name,power.limit"))
     device = {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    max_mhz = float(smi("clocks.max.sm").split()[0])
     log(f"device: {device['kind']} x{device['count']} (torch "
-        f"{torch.__version__}, CUDA {torch.version.cuda})")
-    return device
+        f"{torch.__version__}, CUDA {torch.version.cuda}); {n_sms} SMs, "
+        f"max SM clock {max_mhz:g} MHz")
+    return device, n_sms * max_mhz * 1e6
 
 
 # -- phase 2: build ------------------------------------------------------------
@@ -203,8 +239,98 @@ def max_abs_err(torch, got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
-def phase_kernels(np, torch, seed: int) -> list[dict]:
+def k1_bound(B, T, W, epilogue: str, sm_clocks_per_s: float):
+    """K1's least time: (bytes, operations ms, how the operations were
+    counted).  Bytes: the blob and template words, the meta rows and the
+    blob columns in, the outputs out.  Operations: the B·T·W pair-words
+    on the single-bit tensor cores against the score algebra (and
+    compare) on the CUDA cores, whichever takes longer: the two units
+    run side by side."""
+    out = 3 * B * 4 if epilogue == "best" else 2 * B * T * 4
+    n_bytes = B * W * 4 + T * W * 4 + T * 8 * 4 + B * 9 + out
+    tensor_ms = B * T * W / (B1_PAIR_WORDS_PER_CLK_SM * sm_clocks_per_s) * 1e3
+    alu_ops = B * T * K1_PAIR_OPS[epilogue]
+    alu_ms = alu_ops / (INT_OPS_PER_CLK_SM * sm_clocks_per_s) * 1e3
+    how = (f"{B * T * W} b1 pair-words, {tensor_ms:.5f} ms; {alu_ops} "
+           f"integer ops, {alu_ms:.5f} ms")
+    return n_bytes, max(tensor_ms, alu_ms), how
+
+
+def held_against_plain(torch, what, fn, plain) -> int:
+    """The kernel's outputs against its plain version's; raises unless
+    they agree bit for bit."""
+    got, want = fn(), plain()
+    torch.cuda.synchronize()
+    err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+    if err:
+        raise AssertionError(f"{what}: kernel != plain (max {err})")
+    return err
+
+
+def k1_rows(torch, label, B, T, W, run, args, sm_clocks_per_s,
+            epilogues=("best", "planes")) -> list[dict]:
+    """K1's rows at one shape: the fused first-max (`best_match_fused`)
+    and the planes (`score_pairs_fused`), each held against its plain
+    version and timed."""
     from licensee_tpu_torch.kernels import dice_cuda
+
+    suffix = "" if label == "main" else f"@{label}"
+    entries = {
+        "best": ("best_match_fused", dice_cuda.best_match_fused,
+                 dice_cuda.best_match_fused_plain),
+        "planes": ("score_pairs_fused", dice_cuda.score_pairs_fused,
+                   dice_cuda.score_pairs_fused_plain),
+    }
+    rows = []
+    for epilogue in epilogues:
+        name, kernel, plain_fn = entries[epilogue]
+
+        def fn(kernel=kernel):
+            return kernel(*args)
+
+        def plain(plain_fn=plain_fn):
+            return plain_fn(*args)
+
+        err = held_against_plain(torch, f"{name} {label}", fn, plain)
+        n_bytes, ops_ms, how = k1_bound(B, T, W, epilogue, sm_clocks_per_s)
+        rows.append(kernel_row(
+            torch, name + suffix, "dice_score_fused.cu",
+            "licensee_tpu/kernels/dice_pallas.py:482", B, T, W, run, err,
+            fn, plain, None, n_bytes, ops_ms, how,
+            out_bytes=3 * B * 4 if epilogue == "best" else 2 * B * T * 4,
+        ))
+    return rows
+
+
+def ties_case(np, torch, rng, B, T, W):
+    """K1's inputs with exact ties and excluded rows: template t repeats
+    template t mod (the kernel's slice of the templates at this B), in
+    even pairs, so equal scores straddle every split boundary; half the
+    blobs are copies of templates; every template is CC, so the rows
+    under the CC false-positive flag (every fourth) have every template
+    excluded."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    ct, (fb, nw, ln, cf) = random_case(np, torch, rng, B, T, W)
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    per_split = dice_cuda.fused_schedule(B, T, W, n_sms)[1]
+    src = (torch.arange(T, device="cuda") % per_split) // 2 * 2
+    meta = dice_cuda.pack_meta(ct)[src].contiguous()
+    meta[:, dice_cuda.CC_FLAG] = 1
+    meta[:, dice_cuda.VALID] = 1
+    bits = ct.bits[src].contiguous()
+    copy = torch.from_numpy(rng.integers(0, T, B)).to("cuda")
+    fb = fb.clone()
+    fb[::2] = bits[copy[::2]]
+    nw = nw.clone()
+    nw[::2] = meta[copy[::2], dice_cuda.N_WF]
+    cf = torch.zeros(B, dtype=torch.bool, device="cuda")
+    cf[::4] = True
+    return meta, bits, fb, nw, ln, cf
+
+
+def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
+    from licensee_tpu_torch.kernels import dice_cuda, dice_ref
 
     rng = np.random.default_rng(seed)
     rows = []
@@ -215,28 +341,10 @@ def phase_kernels(np, torch, seed: int) -> list[dict]:
         v_pad = tpl_i8.shape[1]
         suffix = "" if label == "main" else f"@{label}"
 
-        # K1: fused popcount + score algebra
-        def k1():
-            return dice_cuda.score_pairs_fused(meta, ct.bits, fb, nw, ln, cf)
-
-        def k1_plain():
-            return dice_cuda.score_pairs_fused_plain(
-                meta, ct.bits, fb, nw, ln, cf)
-
-        (num, den), (pnum, pden) = k1(), k1_plain()
-        torch.cuda.synchronize()
-        err = max(max_abs_err(torch, num, pnum), max_abs_err(torch, den, pden))
-        if err:
-            raise AssertionError(f"K1 {label}: kernel != plain (max {err})")
-        del num, den, pnum, pden
-        k1_bytes = (B * W * 4 + T * W * 4 + T * 8 * 4 + B * 9 + 2 * B * T * 4)
-        k1_ops = 3 * B * T * W
-        rows.append(kernel_row(
-            torch, "score_pairs_fused" + suffix, "dice_score_fused.cu",
-            "licensee_tpu/kernels/dice_pallas.py:482", B, T, W, run, err,
-            k1, k1_plain, None, k1_bytes, k1_ops, CUDA_CORE_OPS_PER_S,
-            out_bytes=2 * B * T * 4,
-        ))
+        # K1: the single-bit tensor-core overlap, the score algebra and
+        # (best) the exact first-max, fused
+        rows += k1_rows(torch, label, B, T, W, run,
+                        (meta, ct.bits, fb, nw, ln, cf), sm_clocks_per_s)
 
         # K2: fused unpack + int8 tensor-core overlap
         def k2():
@@ -245,16 +353,10 @@ def phase_kernels(np, torch, seed: int) -> list[dict]:
         def k2_plain():
             return dice_cuda.overlap_pairs_mma_plain(tpl_i8, fb, T)
 
-        got, want = k2(), k2_plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(torch, got, want)
-        if err:
-            raise AssertionError(f"K2 {label}: kernel != plain (max {err})")
-        del got, want
+        err = held_against_plain(torch, f"K2 {label}", lambda: [k2()],
+                                 lambda: [k2_plain()])
         # the library yardstick: cuBLAS's int8 product on operands the
         # library cannot unpack itself (unpacked here, outside the timing)
-        from licensee_tpu_torch.kernels import dice_ref
-
         lhs = torch.zeros((B, v_pad), dtype=torch.int8, device="cuda")
         lhs[:, : 32 * W] = dice_ref.unpack_bits(fb)
         k2_library = None
@@ -279,38 +381,56 @@ def phase_kernels(np, torch, seed: int) -> list[dict]:
         rows.append(kernel_row(
             torch, "overlap_pairs_mma" + suffix, "dice_overlap_mma.cu",
             "licensee_tpu/kernels/dice_pallas.py:355", B, T, W, run, err,
-            k2, k2_plain, k2_library, k2_bytes, k2_ops,
-            INT8_TENSOR_OPS_PER_S, out_bytes=B * T * 4,
+            k2, k2_plain, k2_library, k2_bytes,
+            k2_ops / INT8_TENSOR_OPS_PER_S * 1e3,
+            f"{k2_ops} int8 tensor-core ops", out_bytes=B * T * 4,
         ))
         if B == MAIN_B:
             time_scorers(torch, label, ct, meta, tpl_i8, (fb, nw, ln, cf))
         del k2_library, lhs, ct, fb, nw, ln, cf, meta, tpl_i8
         torch.cuda.empty_cache()
+
+    for label, B, T, W, run in SMALL_SHAPES:
+        ct, feats = random_case(np, torch, rng, B, T, W)
+        rows += k1_rows(torch, label, B, T, W, run,
+                        (dice_cuda.pack_meta(ct), ct.bits, *feats),
+                        sm_clocks_per_s, epilogues=("best",))
+    label, B, T, W, run = TIES_SHAPE
+    args = ties_case(np, torch, rng, B, T, W)
+    idx, num, den = dice_cuda.best_match_fused(*args)
+    cf = args[5]
+    if not ((idx[cf] == 0).all() and (num[cf] == -1).all()
+            and (den[cf] == 1).all()):
+        raise AssertionError("ties: an all-excluded row is not (0, -1, 1)")
+    rows += k1_rows(torch, label, B, T, W, run, args, sm_clocks_per_s,
+                    epilogues=("best",))
     return rows
 
 
 def time_scorers(torch, label, ct, meta, tpl_i8, feats) -> None:
     """The whole score step of one batch as `make_best_match_fn` runs it
-    per method: K1 alone, or K2 and then the score algebra in PyTorch
-    (the argmax after both is the same)."""
+    per method, the argmax included: K1 fused (one launch), or K2, then
+    the score algebra and the exact argmax in PyTorch."""
     from licensee_tpu_torch.kernels import dice_cuda, dice_ref
 
     def k1():
-        return dice_cuda.score_pairs_fused(meta, ct.bits, *feats)
+        return dice_cuda.best_match_fused(meta, ct.bits, *feats)
 
     def k2():
         overlap = dice_cuda.overlap_pairs_mma(tpl_i8, feats[0], ct.n_templates)
-        return dice_ref.finish_scores(ct, overlap, *feats[1:])
+        return dice_ref.argmax_exact(
+            *dice_ref.finish_scores(ct, overlap, *feats[1:]))
 
+    held_against_plain(torch, f"scorers {label}", k1, k2)
     B, T = feats[0].shape[0], ct.n_templates
-    for method, fn in (("K1", k1), ("K2+algebra", k2)):
+    for method, fn in (("K1 fused", k1), ("K2+algebra+argmax", k2)):
         log(f"scorer {method} @{label}: B={B} T={T} "
             f"ms={cuda_time_ms(torch, fn):.4f} "
             f"device_ms={graph_time_ms(torch, fn, 2 * B * T * 4):.4f}")
 
 
 def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
-               library, n_bytes, n_ops, ops_rate, out_bytes) -> dict:
+               library, n_bytes, ops_ms, ops_how, out_bytes) -> dict:
     ms = cuda_time_ms(torch, fn)
     device_ms = graph_time_ms(torch, fn, out_bytes)
     plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5)
@@ -319,7 +439,6 @@ def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
         library_ms = cuda_time_ms(torch, library)
         library_device_ms = graph_time_ms(torch, library, out_bytes)
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = n_ops / ops_rate * 1e3
     row = {
         "name": name,
         "route": "cuda",
@@ -345,8 +464,8 @@ def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
         f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={fmt(library_ms)} "
         f"library_device_ms={fmt(library_device_ms)} "
-        f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
-        f"{n_bytes} bytes, {n_ops} ops)")
+        f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}; "
+        f"{n_bytes} bytes, {bytes_ms:.5f} ms; {ops_how})")
     return row
 
 
@@ -449,16 +568,37 @@ def run_cli(argv: list[str]) -> dict:
     return json.loads(err.getvalue().strip().splitlines()[-1])
 
 
+@contextlib.contextmanager
+def counting_card_argmax(torch):
+    """Counts `dice_ref.argmax_exact` calls on CUDA tensors meanwhile."""
+    from licensee_tpu_torch.kernels import dice_ref
+
+    calls = [0]
+    argmax = dice_ref.argmax_exact
+
+    def counted(num, den):
+        calls[0] += num.device.type == "cuda"
+        return argmax(num, den)
+
+    dice_ref.argmax_exact = counted
+    try:
+        yield calls
+    finally:
+        dice_ref.argmax_exact = argmax
+
+
 def run_slice(np, torch, run: str, root: str, manifest: str,
               extra: list[str]) -> dict:
     """`batch-detect` over ``manifest`` through K1 and K2, each on the card
-    and with --device cpu; returns each kernel's launches in its run."""
+    and with --device cpu; returns every kernel's launches over the card
+    runs.  The K1 run must take the fused first-max: no planes kernel and
+    no argmax on the card after it."""
     from licensee_tpu_torch.kernels import dice_cuda
 
     with open(manifest, encoding="utf-8") as fh:
         n_rows = sum(1 for line in fh if line.strip())
-    launches = {}
-    for method, kernel in (("pallas", "score_pairs_fused"),
+    launches = dict.fromkeys(dice_cuda.LAUNCHES, 0)
+    for method, kernel in (("pallas", "best_match_fused"),
                            ("pallas-mxu", "overlap_pairs_mma")):
         outs = {}
         for device in ("cpu", "cuda"):
@@ -469,10 +609,18 @@ def run_slice(np, torch, run: str, root: str, manifest: str,
                 torch.cuda.synchronize()
                 dice_cuda.reset_launches()
             t0 = time.perf_counter()
-            stats = run_cli(argv)
+            with counting_card_argmax(torch) as card_argmax:
+                stats = run_cli(argv)
             elapsed = time.perf_counter() - t0
             if device == "cuda":
-                launches[kernel] = dice_cuda.LAUNCHES[kernel]
+                for name, n in dice_cuda.LAUNCHES.items():
+                    launches[name] += n
+                if method == "pallas" and (
+                        card_argmax[0]
+                        or dice_cuda.LAUNCHES["score_pairs_fused"]):
+                    raise AssertionError(
+                        f"{run} {method}: the K1 path ran the planes kernel "
+                        f"or argmax_exact on the card ({card_argmax[0]})")
             with open(out, "rb") as fh:
                 outs[device] = fh.read()
             lines = outs[device].decode().splitlines()
@@ -535,9 +683,9 @@ def main() -> int:
         return 1
     import licensee_tpu_torch  # noqa: F401 — fails outside a checkout
 
-    device = phase_device(torch)
+    device, sm_clocks_per_s = phase_device(torch)
     phase_build()
-    rows = phase_kernels(np, torch, args.seed)
+    rows = phase_kernels(np, torch, args.seed, sm_clocks_per_s)
     launches = phase_slice(np, torch, args.seed)
     for row in rows:
         row["launches"] = launches[row.pop("slice_run"),

@@ -1,8 +1,10 @@
-// K1: the fused popcount-and-score Dice kernel for Hopper (sm_90a).
+// K1: the fused overlap-and-score Dice kernel for Hopper (sm_90a), with
+// the exact first-max fused into its epilogue.
 //
 // Replaces the Pallas TPU kernel `_make_kernel`, reached through
-// `_score_pairs_padded` (licensee_tpu/kernels/dice_pallas.py).  For every
-// (blob b, template t):
+// `_score_pairs_padded` (licensee_tpu/kernels/dice_pallas.py), and the
+// argmax after it (`_argmax_exact`, licensee_tpu/kernels/dice_xla.py).
+// For every (blob b, template t):
 //
 //   overlap = sum_w popcount(file[b, w] & tpl[t, w])
 //   denom   = n_wf + n_words - n_fieldset
@@ -10,129 +12,486 @@
 //   excluded = (cc_flag[t] && cc_fp[b]) || !valid[t]
 //   num = excluded ? -1 : overlap;  den = (excluded || denom <= 0) ? 1 : denom
 //
-// written straight into the public [B, T] int32 layout (the TPU kernel's
-// (n_tiles, T, TILE_B) planes are a Mosaic layout choice).
+// One mainloop, two epilogues chosen at compile time:
 //
-// Design.  The TPU kernel keeps every template in VMEM; a Hopper block has
-// at most 227 KB of shared memory, and the synthetic-SPDX corpus alone is
-// 608 x 132 x 4 B = 321 KB.  So the grid tiles templates as well as blobs:
-// block (x, y) stages template tile y (K1_TILE_T rows plus their meta
-// columns) in shared memory and each of its threads scores one blob of
-// blob tile x against it.  A thread streams its blob row from device
-// memory in 16-byte loads (each byte read once per template tile), and
-// reads each template word as a warp-wide shared-memory broadcast.
+// * planes (`dice_score_fused`): (num, den) int32[B, T];
+// * best (`dice_best_fused`): per blob the first template of greatest
+//   num/den, (idx, num, den) int32[B]; the [B, T] planes never reach
+//   device memory.
 //
-// Bound.  At the vendored width (T=47, W=112) the bytes the function must
-// move (the file bitsets in, num/den out) and its integer operations
-// (AND + POPC + ADD per pair-word) give about the same least time; at
-// T=608 the operations bind.  POPC issues at a quarter of the FP32 lane
-// rate, so this simple kernel is expected to sit well above that least
-// time: making it fast (more blobs per thread, wider template reuse) is
-// later work, with its times kept in PERF.md.
+// What bounds it on an H100 SXM (132 SMs at up to 1.98 GHz, 3.35 TB/s).
+// Per SM and clock the CUDA cores issue 16 population counts and 64
+// 32-bit logic or integer adds (the CUDA C++ Programming Guide's
+// throughput table, compute capability 9.0): a loop of one POPC per
+// pair-word tops out at 4.2e12 pair-words/s.  The single-bit tensor-core
+// product mma.sync.m16n8k256.b1.and.popc computes the same sum straight
+// from the packed words, exact in its s32 accumulator (a count is at most
+// 32 W < 2^31), and ran at 597 pair-words per SM and clock on the card,
+// 38x the POPC loop (PERF.md §6).  So the overlap goes to the tensor
+// cores, and what is left bounds each regime:
+//
+// * small batches (the main path: 347 to 4096 Dice-bound rows a chunk):
+//   latency and filling 132 SMs; the least time, the blob bytes, is
+//   under a microsecond.  The grid splits the templates over blockIdx.x
+//   as well as the blobs over blockIdx.y (`fused_schedule` in
+//   kernels/dice_cuda.py picks the split for about two blocks per SM),
+//   T is padded only to the mma's 8 columns, and one launch returns the
+//   top-1, so no second kernel or argmax launches follow it;
+// * large batches at T=608: the score algebra and exact compare on the
+//   CUDA cores, some 14 integer operations per pair (0.13 ms at
+//   B=262144 on the 64-wide pipe), more than the tensor-core overlap
+//   (0.08 ms at 1024 pair-words per SM and clock) or the blob bytes
+//   (0.04 ms).
+//
+// Design.  A block is four warps over 64 blob rows, one m16 tile each,
+// and walks its slice of the templates in chunks of up to 32 (four n8
+// tiles).  The block's blob rows sit in shared memory for the whole
+// run; template chunks stream through a double-buffered shared-memory
+// ring by cp.async, so the corpus (321 KB at T=608, over the 227 KB a
+// block can have) stays in L2 and only a chunk is ever resident; at
+// 71 KB a block, three blocks share an SM.  Rows are strided by Wp
+// words, Wp = W rounded up to 8 and then to 8 mod 32, so each 8-byte
+// fragment load of a warp hits 32 distinct banks; the blob rows' words
+// past W are zeroed, so padding adds nothing to a sum.
+//
+// The m16n8k256 operands take the k-step's 8 words in the order
+// (2t, 2t+1) per lane t of a quad for both A (blobs) and B (templates):
+// the product pairs words of equal index, so the permutation leaves every
+// sum as it is, and each lane's fragment is one 8-byte load.
+//
+// The first-max.  A lane scans its columns of each of its two rows in
+// increasing template order and replaces its best only on a strictly
+// greater num/den, compared exactly in int64 (a/b > c/d <=> a*d > c*b,
+// every den >= 1).  Partial bests are then merged across the quad's lanes
+// (shuffles) and, where the templates are split over blocks, across
+// blocks, with
+//
+//   better(r, l) = r.num * l.den > l.num * r.den
+//                  || (r.num * l.den == l.num * r.den && r.idx < l.idx)
+//
+// which is a total order on (value, -index): any merge tree gives the
+// sequential first-max.  Excluded pairs arrive as (-1, 1), so a row whose
+// every template is excluded returns (0, -1, 1).  Split blocks write
+// their bests to scratch [3][splits][B]; the last block of a blob tile
+// to finish (an atomic ticket per tile, after __threadfence) merges
+// them and resets its ticket to 0 for the next launch: one launch, no
+// memset, no second kernel.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int K1_THREADS = 128;  // blobs per block, one per thread
-constexpr int K1_TILE_T = 32;    // templates per block
-constexpr int META_COLS = 8;     // int32 meta row, as dice_pallas.pack_corpus
+constexpr int K1_WARPS = 4;
+constexpr int K1_THREADS = K1_WARPS * 32;
+constexpr int K1_BM = 16 * K1_WARPS;  // blob rows per block
+constexpr int K1_TC = 32;             // most templates per chunk
+constexpr int K1_NT = K1_TC / 8;      // n8 tiles per chunk
+constexpr int META_COLS = 8;          // int32 meta row, as dice_pallas.pack_corpus
+constexpr int SMEM_CAP = 227 * 1024;
 
 enum { N_WF, N_FIELDSET, FIELD_COUNT, ALT_COUNT, LENGTH, CC_FLAG, VALID };
 
-__global__ void __launch_bounds__(K1_THREADS)
-dice_score_fused_kernel(const int* __restrict__ meta,
-                        const uint32_t* __restrict__ tpl,
-                        const uint32_t* __restrict__ file,
-                        const int* __restrict__ n_words,
-                        const int* __restrict__ lengths,
-                        const unsigned char* __restrict__ cc_fp,
-                        int* __restrict__ num,
-                        int* __restrict__ den,
-                        int B, int T, int W) {
-  extern __shared__ uint4 smem[];  // uint4 keeps the 16-byte alignment
-  uint32_t* s_tpl = reinterpret_cast<uint32_t*>(smem);     // [K1_TILE_T][W]
-  int* s_meta = reinterpret_cast<int*>(s_tpl + K1_TILE_T * W);
+// the shared-memory row stride in words: W rounded up to whole 8-word
+// k-steps, then to 8 mod 32 (conflict-free 8-byte fragment loads)
+inline int row_stride(int W) {
+  const int w8 = (W + 7) / 8 * 8;
+  return w8 + (40 - w8 % 32) % 32;
+}
 
-  const int t0 = blockIdx.y * K1_TILE_T;
-  const int nt = min(K1_TILE_T, T - t0);
-  const uint32_t* tpl_tile = tpl + static_cast<size_t>(t0) * W;
-  for (int i = threadIdx.x; i < K1_TILE_T * W; i += K1_THREADS) {
-    s_tpl[i] = (i / W) < nt ? tpl_tile[i] : 0u;
+inline size_t smem_bytes(int Wp, int tc) {
+  return sizeof(uint32_t) * static_cast<size_t>(Wp) * (K1_BM + 2 * tc) +
+         sizeof(int) * 2 * tc * META_COLS + sizeof(int4) * tc;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += popc(a & b) summed over 256 bits, a 16 x 8 tile of s32
+__device__ __forceinline__ void mma_and_popc(int* c, uint2 lo, uint2 hi,
+                                             uint2 b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(lo.x), "r"(hi.x), "r"(lo.y), "r"(hi.y), "r"(b.x), "r"(b.y));
+}
+
+// int32 arithmetic that wraps as the plain versions' does
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) + static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<uint32_t>(a) - static_cast<uint32_t>(b));
+}
+__device__ __forceinline__ int wabs(int a) {
+  return a < 0 ? wsub(0, a) : a;
+}
+
+// a template's constants as the epilogue uses them
+struct alignas(16) TplConst {
+  int base;   // n_wf - n_fieldset
+  int len;    // length
+  int slack;  // 5 * max(field_count, alt_count)
+  int flags;  // bit 0: not valid; bit 1: cc_flag
+};
+
+struct BlobConst {
+  int n_words, len, mask;  // mask: 1, | 2 under the CC false-positive flag
+};
+
+__device__ __forceinline__ void score(int overlap, const TplConst& m,
+                                      const BlobConst& b, int& num,
+                                      int& den) {
+  const int adj = max(wsub(wabs(wsub(m.len, b.len)), m.slack), 0);
+  const int denom = wadd(wadd(m.base, b.n_words), adj >> 2);
+  const bool excluded = (m.flags & b.mask) != 0;
+  num = excluded ? -1 : overlap;
+  den = (excluded || denom <= 0) ? 1 : denom;
+}
+
+struct Best {
+  int idx, num, den;
+};
+
+// the merge comparator: a total order on (num / den, -idx)
+__device__ __forceinline__ bool better(const Best& r, const Best& l) {
+  const long long rp = static_cast<long long>(r.num) * l.den;
+  const long long lp = static_cast<long long>(l.num) * r.den;
+  return rp > lp || (rp == lp && r.idx < l.idx);
+}
+
+__device__ __forceinline__ Best shfl_best(const Best& v, int mask) {
+  return {__shfl_xor_sync(0xffffffffu, v.idx, mask),
+          __shfl_xor_sync(0xffffffffu, v.num, mask),
+          __shfl_xor_sync(0xffffffffu, v.den, mask)};
+}
+
+struct Params {
+  const int* meta;
+  const uint32_t* tpl;
+  const uint32_t* file;
+  const int* n_words;
+  const int* lengths;
+  const unsigned char* cc_fp;
+  int* out0;     // planes: num; best: idx
+  int* out1;     // planes: den; best: num
+  int* out2;     // best: den
+  int* partial;  // best with splits > 1: [3][splits][B]
+  int* tickets;  // best with splits > 1: one per blob tile, zero between launches
+  int B, T, W, Wp, per_split, tc;
+};
+
+template <bool kBest>
+__global__ void __launch_bounds__(K1_THREADS)
+    dice_k1_kernel(const Params p) {
+  extern __shared__ uint4 smem[];  // uint4 keeps the 16-byte alignment
+  uint32_t* s_blob = reinterpret_cast<uint32_t*>(smem);  // [K1_BM][Wp]
+  uint32_t* s_tpl = s_blob + K1_BM * p.Wp;               // [2][tc][Wp]
+  int* s_meta = reinterpret_cast<int*>(s_tpl + 2 * p.tc * p.Wp);  // [2][tc][8]
+  TplConst* s_const = reinterpret_cast<TplConst*>(s_meta + 2 * p.tc * META_COLS);
+
+  const int split = blockIdx.x;
+  const int b0 = blockIdx.y * K1_BM;
+  const int t_lo = split * p.per_split;
+  const int t_hi = min(p.T, t_lo + p.per_split);
+  const int n_chunks = (t_hi - t_lo + p.tc - 1) / p.tc;
+  const int w4 = p.W / 4;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  // rows of W words to rows strided by Wp: a warp per row, 16 bytes a lane
+  auto copy_rows = [&](uint32_t* dst, const uint32_t* src, int n_rows) {
+    for (int r = warp; r < n_rows; r += K1_WARPS) {
+      for (int q = lane; q < w4; q += 32) {
+        cp_async16(dst + r * p.Wp + 4 * q,
+                   src + static_cast<size_t>(r) * p.W + 4 * q);
+      }
+    }
+  };
+
+  // the block's blob rows, once; their words past W zeroed
+  const int rows = min(K1_BM, p.B - b0);
+  copy_rows(s_blob, p.file + static_cast<size_t>(b0) * p.W, rows);
+  const int w8 = (p.W + 7) / 8 * 8;
+  for (int i = threadIdx.x; i < K1_BM * (w8 - p.W); i += K1_THREADS) {
+    const int r = i / (w8 - p.W);
+    s_blob[r * p.Wp + p.W + i % (w8 - p.W)] = 0u;
   }
-  const int* meta_tile = meta + static_cast<size_t>(t0) * META_COLS;
-  for (int i = threadIdx.x; i < K1_TILE_T * META_COLS; i += K1_THREADS) {
-    s_meta[i] = (i / META_COLS) < nt ? meta_tile[i] : 0;
+
+  auto load_chunk = [&](int c) {
+    const int buf = c & 1;
+    const int t0 = t_lo + c * p.tc;
+    const int nt = min(p.tc, t_hi - t0);
+    copy_rows(s_tpl + buf * p.tc * p.Wp,
+              p.tpl + static_cast<size_t>(t0) * p.W, nt);
+    int* mdst = s_meta + buf * p.tc * META_COLS;
+    for (int i = threadIdx.x; i < nt * 2; i += K1_THREADS) {
+      cp_async16(mdst + 4 * i, p.meta + static_cast<size_t>(t0) * META_COLS + 4 * i);
+    }
+  };
+  load_chunk(0);
+  cp_async_commit();
+
+  // this lane's two rows, g and g + 8 of its warp's m16 tile
+  auto row_of = [&](int r) { return b0 + warp * 16 + g + 8 * r; };
+  BlobConst bc[2];
+  Best best[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = min(row_of(r), p.B - 1);
+    bc[r] = {p.n_words[row], p.lengths[row], p.cc_fp[row] ? 3 : 1};
+    best[r] = {INT_MAX, -2, 1};  // below any pair
+  }
+
+  const uint32_t* a_lo = s_blob + (warp * 16 + g) * p.Wp + 2 * t;
+  const uint32_t* a_hi = a_lo + 8 * p.Wp;
+  const int n_ksteps = w8 / 8;
+
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + 1 < n_chunks) {
+      load_chunk(c + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = c & 1;
+    const int t0 = t_lo + c * p.tc;
+    const int nt = min(p.tc, t_hi - t0);
+    if (threadIdx.x < nt) {
+      const int* m = s_meta + (buf * p.tc + threadIdx.x) * META_COLS;
+      s_const[threadIdx.x] = {wsub(m[N_WF], m[N_FIELDSET]), m[LENGTH],
+                              static_cast<int>(5u * static_cast<uint32_t>(
+                                  max(m[FIELD_COUNT], m[ALT_COUNT]))),
+                              (m[VALID] != 1 ? 1 : 0) | (m[CC_FLAG] == 1 ? 2 : 0)};
+    }
+
+    int acc[K1_NT][4] = {};
+    const uint32_t* b_row = s_tpl + (buf * p.tc + g) * p.Wp + 2 * t;
+    for (int k = 0; k < n_ksteps; ++k) {
+      const uint2 lo = *reinterpret_cast<const uint2*>(a_lo + 8 * k);
+      const uint2 hi = *reinterpret_cast<const uint2*>(a_hi + 8 * k);
+#pragma unroll
+      for (int j = 0; j < K1_NT; ++j) {
+        if (8 * j < nt) {
+          const uint2 b =
+              *reinterpret_cast<const uint2*>(b_row + 8 * j * p.Wp + 8 * k);
+          mma_and_popc(acc[j], lo, hi, b);
+        }
+      }
+    }
+    __syncthreads();  // s_const is written; the ring slot may be refilled
+
+#pragma unroll
+    for (int j = 0; j < K1_NT; ++j) {
+      if (8 * j >= nt) continue;
+      const int col = 8 * j + 2 * t;  // this lane's column pair in the chunk
+      const bool two = col + 1 < nt;
+      if (col >= nt) continue;
+      const TplConst m0 = s_const[col];
+      const TplConst m1 = s_const[two ? col + 1 : col];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int num0, den0, num1, den1;
+        score(acc[j][2 * r], m0, bc[r], num0, den0);
+        score(acc[j][2 * r + 1], m1, bc[r], num1, den1);
+        if (kBest) {
+          // columns arrive in increasing template order: only a strictly
+          // greater score replaces the first-max so far
+          if (static_cast<long long>(num0) * best[r].den >
+              static_cast<long long>(best[r].num) * den0) {
+            best[r] = {t0 + col, num0, den0};
+          }
+          if (two && static_cast<long long>(num1) * best[r].den >
+                         static_cast<long long>(best[r].num) * den1) {
+            best[r] = {t0 + col + 1, num1, den1};
+          }
+        } else {
+          const int row = row_of(r);
+          if (row >= p.B) continue;
+          const size_t at = static_cast<size_t>(row) * p.T + t0 + col;
+          if (two && (p.T & 1) == 0) {  // `at` is even: 8-byte aligned
+            *reinterpret_cast<int2*>(p.out0 + at) = make_int2(num0, num1);
+            *reinterpret_cast<int2*>(p.out1 + at) = make_int2(den0, den1);
+          } else {
+            p.out0[at] = num0;
+            p.out1[at] = den0;
+            if (two) {
+              p.out0[at + 1] = num1;
+              p.out1[at + 1] = den1;
+            }
+          }
+        }
+      }
+    }
+  }
+  if (!kBest) return;
+
+  // the quad's four lanes hold disjoint columns of the same rows
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int mask = 1; mask <= 2; mask <<= 1) {
+      const Best o = shfl_best(best[r], mask);
+      if (better(o, best[r])) best[r] = o;
+    }
+  }
+  const int splits = gridDim.x;
+  if (splits == 1) {
+    if (t == 0) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_of(r);
+        if (row < p.B) {
+          p.out0[row] = best[r].idx;
+          p.out1[row] = best[r].num;
+          p.out2[row] = best[r].den;
+        }
+      }
+    }
+    return;
+  }
+
+  const size_t plane = static_cast<size_t>(splits) * p.B;
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_of(r);
+      if (row < p.B) {
+        const size_t at = static_cast<size_t>(split) * p.B + row;
+        p.partial[at] = best[r].idx;
+        p.partial[plane + at] = best[r].num;
+        p.partial[2 * plane + at] = best[r].den;
+      }
+    }
+  }
+  __threadfence();  // this block's bests are visible before its ticket
+  __syncthreads();
+  __shared__ bool s_last;
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(p.tickets + blockIdx.y, 1) == splits - 1;
   }
   __syncthreads();
-
-  const int b = blockIdx.x * K1_THREADS + threadIdx.x;
-  if (b >= B) return;
-
-  int acc[K1_TILE_T];
-#pragma unroll
-  for (int t = 0; t < K1_TILE_T; ++t) acc[t] = 0;
-
-  const uint4* frow =
-      reinterpret_cast<const uint4*>(file + static_cast<size_t>(b) * W);
-  const int w4 = W / 4;
-  for (int q = 0; q < w4; ++q) {
-    const uint4 f = __ldg(frow + q);
-#pragma unroll
-    for (int t = 0; t < K1_TILE_T; ++t) {
-      const uint4 v = reinterpret_cast<const uint4*>(s_tpl + t * W)[q];
-      acc[t] += __popc(f.x & v.x) + __popc(f.y & v.y) +
-                __popc(f.z & v.z) + __popc(f.w & v.w);
+  if (!s_last) return;
+  __threadfence();  // every other block's bests are visible to this one
+  for (int i = threadIdx.x; i < rows; i += K1_THREADS) {
+    const int row = b0 + i;
+    Best acc = {INT_MAX, -2, 1};
+    for (int s = 0; s < splits; ++s) {
+      const size_t at = static_cast<size_t>(s) * p.B + row;
+      const Best o = {__ldcg(p.partial + at), __ldcg(p.partial + plane + at),
+                      __ldcg(p.partial + 2 * plane + at)};
+      if (better(o, acc)) acc = o;
     }
+    p.out0[row] = acc.idx;
+    p.out1[row] = acc.num;
+    p.out2[row] = acc.den;
   }
+  if (threadIdx.x == 0) p.tickets[blockIdx.y] = 0;
+}
 
-  const int nw = n_words[b];
-  const int len = lengths[b];
-  const bool cc = cc_fp[b] != 0;
-  int* num_row = num + static_cast<size_t>(b) * T + t0;
-  int* den_row = den + static_cast<size_t>(b) * T + t0;
-#pragma unroll
-  for (int t = 0; t < K1_TILE_T; ++t) {
-    if (t < nt) {
-      const int* m = s_meta + t * META_COLS;
-      const int total = m[N_WF] + nw - m[N_FIELDSET];
-      const int delta = abs(m[LENGTH] - len);
-      const int adj = max(delta - 5 * max(m[FIELD_COUNT], m[ALT_COUNT]), 0);
-      const int denom = total + adj / 4;  // adj >= 0: floor division
-      const bool excluded = (m[CC_FLAG] == 1 && cc) || m[VALID] == 0;
-      num_row[t] = excluded ? -1 : acc[t];
-      den_row[t] = (excluded || denom <= 0) ? 1 : denom;
-    }
-  }
+template <bool kBest>
+int launch(const Params& p, cudaStream_t stream) {
+  if (p.B <= 0 || p.T <= 0 || p.W <= 0 || p.W % 4 || p.per_split < 8 ||
+      p.per_split % 8 || p.tc < 8 || p.tc > K1_TC || p.tc % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = (p.B + K1_BM - 1) / K1_BM;
+  const int splits = (p.T + p.per_split - 1) / p.per_split;
+  if (n_tiles > 65535 || splits > 65535 ||
+      (kBest && splits > 1 && (p.partial == nullptr || p.tickets == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(p.Wp, p.tc);
+  if (smem > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  // on every launch: the limit belongs to the current device's context
+  const cudaError_t attr = cudaFuncSetAttribute(
+      dice_k1_kernel<kBest>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // template slices fastest: the blocks that run together share one blob
+  // tile, read once from device memory, and the merging block comes soon
+  const dim3 grid(splits, n_tiles);
+  dice_k1_kernel<kBest><<<grid, K1_THREADS, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Params make_params(const void* meta, const void* tpl, const void* file,
+                   const void* n_words, const void* lengths,
+                   const void* cc_fp, int B, int T, int W, int per_split,
+                   int tc) {
+  Params p{};
+  p.meta = static_cast<const int*>(meta);
+  p.tpl = static_cast<const uint32_t*>(tpl);
+  p.file = static_cast<const uint32_t*>(file);
+  p.n_words = static_cast<const int*>(n_words);
+  p.lengths = static_cast<const int*>(lengths);
+  p.cc_fp = static_cast<const unsigned char*>(cc_fp);
+  p.B = B;
+  p.T = T;
+  p.W = W;
+  p.Wp = row_stride(W);
+  p.per_split = per_split;
+  p.tc = tc;
+  return p;
 }
 
 }  // namespace
 
-// Scores B blobs against T templates on `stream`.  Pointers are device
-// pointers; `tpl`/`file` rows hold W (a multiple of 4) uint32 words and
-// start 16-byte aligned.  Returns the launch's cudaError_t.
+// Both entry points score B blobs against T templates on `stream`, with
+// the templates split in slices of `per_split` (a multiple of 8) over
+// ceil(T / per_split) blocks per 64-row blob tile and streamed in chunks
+// of `tc` templates (a multiple of 8, at most 32); `fused_schedule` in
+// kernels/dice_cuda.py picks both.  Pointers are device pointers;
+// `meta`, `tpl` and `file` are 16-byte aligned, their rows W (a multiple
+// of 4) uint32 words.  Each returns the launch's cudaError_t.
+
+// (num, den) int32[B, T]
 extern "C" int dice_score_fused(const void* meta, const void* tpl,
                                 const void* file, const void* n_words,
                                 const void* lengths, const void* cc_fp,
                                 void* num, void* den, int B, int T, int W,
-                                void* stream) {
-  const size_t smem = static_cast<size_t>(K1_TILE_T) * W * sizeof(uint32_t) +
-                      K1_TILE_T * META_COLS * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dice_score_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((B + K1_THREADS - 1) / K1_THREADS,
-                  (T + K1_TILE_T - 1) / K1_TILE_T);
-  dice_score_fused_kernel<<<grid, K1_THREADS, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(meta), static_cast<const uint32_t*>(tpl),
-      static_cast<const uint32_t*>(file), static_cast<const int*>(n_words),
-      static_cast<const int*>(lengths),
-      static_cast<const unsigned char*>(cc_fp), static_cast<int*>(num),
-      static_cast<int*>(den), B, T, W);
-  return static_cast<int>(cudaGetLastError());
+                                int per_split, int tc, void* stream) {
+  Params p = make_params(meta, tpl, file, n_words, lengths, cc_fp, B, T, W,
+                         per_split, tc);
+  p.out0 = static_cast<int*>(num);
+  p.out1 = static_cast<int*>(den);
+  return launch<false>(p, static_cast<cudaStream_t>(stream));
+}
+
+// (idx, num, den) int32[B], the exact first-max over templates.  With
+// more than one split, `partial` is int32 scratch of 3 * splits * B and
+// `tickets` int32[ceil(B / 64)] zeros, which the launch leaves zero.
+extern "C" int dice_best_fused(const void* meta, const void* tpl,
+                               const void* file, const void* n_words,
+                               const void* lengths, const void* cc_fp,
+                               void* idx, void* num, void* den,
+                               void* partial, void* tickets, int B, int T,
+                               int W, int per_split, int tc, void* stream) {
+  Params p = make_params(meta, tpl, file, n_words, lengths, cc_fp, B, T, W,
+                         per_split, tc);
+  p.out0 = static_cast<int*>(idx);
+  p.out1 = static_cast<int*>(num);
+  p.out2 = static_cast<int*>(den);
+  p.partial = static_cast<int*>(partial);
+  p.tickets = static_cast<int*>(tickets);
+  return launch<true>(p, static_cast<cudaStream_t>(stream));
 }

@@ -46,11 +46,12 @@ METHODS = ("auto",) + dice_cuda.K1_METHODS + dice_cuda.K2_METHODS
 # same name (`licensee_tpu/kernels/batch.py`), but from the port's own
 # times: ascending (max_templates, method) rungs, None for everything
 # above.  It compares the whole score step of a 4096-row batch as the
-# batch path runs it (chip_smoke.py phase 3's "scorer" lines, PERF.md):
-# K1 fuses the score algebra, while K2 leaves it to a dozen PyTorch ops
-# whose launches cost more than K2 saves, at T=47 and at T=608 alike.
-# So K1 takes every width until the algebra and the argmax are fused
-# into K2's epilogue (ROADMAP, K4).
+# batch path runs it, the argmax included (chip_smoke.py phase 3's
+# "scorer" lines, PERF.md §6): K1 is one launch that fuses the score
+# algebra and the exact first-max, while K2 leaves both to some hundred
+# PyTorch launches, which cost more than K2 saves, eager and on device
+# time, at T=47 and at T=608 alike.  So K1 takes every width until the
+# algebra and the argmax are fused into K2's epilogue (ROADMAP, K4).
 METHOD_CROSSOVER: tuple = ((None, "popcount"),)
 
 

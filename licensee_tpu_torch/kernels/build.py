@@ -31,8 +31,12 @@ CFLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # c_void_p (a bare int would be cut to 32 bits), every size as c_int
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    # meta, tpl, file, n_words, lengths, cc_fp, num, den, B, T, W, stream
-    "dice_score_fused": [_P] * 8 + [_I] * 3 + [_P],
+    # meta, tpl, file, n_words, lengths, cc_fp, num, den, B, T, W,
+    # per_split, tc, stream
+    "dice_score_fused": [_P] * 8 + [_I] * 5 + [_P],
+    # meta, tpl, file, n_words, lengths, cc_fp, idx, num, den, partial,
+    # tickets, B, T, W, per_split, tc, stream
+    "dice_best_fused": [_P] * 11 + [_I] * 5 + [_P],
     # tpl, file, out, B, T, W, t_pad, bn, splits, stream
     "dice_overlap_mma": [_P] * 3 + [_I] * 6 + [_P],
 }

@@ -3,10 +3,13 @@
 Counterpart of `licensee_tpu/kernels/dice_pallas.py`, whose two Pallas
 TPU kernels become CUDA C++ in `licensee_tpu_torch/csrc/`:
 
-* K1 `score_pairs_fused` (csrc/dice_score_fused.cu) replaces
-  `_make_kernel` behind `_score_pairs_padded`: popcount of the bitset
-  intersection and the exact int32 score algebra in one pass, giving
-  (num, den) int32[B, T].
+* K1 (csrc/dice_score_fused.cu) replaces `_make_kernel` behind
+  `_score_pairs_padded`: the bitset intersection counted on the
+  single-bit tensor cores and the exact int32 score algebra in one
+  pass.  `best_match_fused`, what the batch path runs, also fuses the
+  exact first-max (`dice_xla._argmax_exact`) and gives (idx, num, den)
+  int32[B]; `score_pairs_fused` gives the (num, den) int32[B, T]
+  planes.
 * K2 `overlap_pairs_mma` (csrc/dice_overlap_mma.cu) replaces
   `_make_mxu_kernel` behind `_overlap_mxu_padded`: the packed blob bits
   spread into wgmma's register operand on chip and contracted against
@@ -31,12 +34,22 @@ from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
 
 # kernel name -> launches since the last reset; a wrapper adds one
 # exactly where it launches its kernel
-LAUNCHES = {"score_pairs_fused": 0, "overlap_pairs_mma": 0}
+LAUNCHES = {"score_pairs_fused": 0, "best_match_fused": 0,
+            "overlap_pairs_mma": 0}
 
 # meta-table columns of K1 (int32[T, 8], one row per template), as
 # `dice_pallas.pack_corpus` lays them out
 N_WF, N_FIELDSET, FIELD_COUNT, ALT_COUNT, LENGTH, CC_FLAG, VALID = range(7)
 META_COLS = 8
+
+# K1's tiling, mirrored from csrc/dice_score_fused.cu: 64 blob rows per
+# block (four warps of one m16 tile each), templates in chunks of at most
+# 32 (four n8 tiles) through a double-buffered shared-memory ring, rows
+# strided by `k1_row_stride` words, within 227 KB of shared memory.
+K1_BM = 64
+K1_TC = 32
+K1_SMEM_CAP = 227 * 1024
+K1_BLOCKS_PER_SM = 2  # the grid `fused_schedule` aims for at small B
 
 # K2's tiling, mirrored from csrc/dice_overlap_mma.cu.  The unpacked
 # template matrix has T rounded up to MMA_TILE_T rows (wgmma's N comes in
@@ -102,6 +115,11 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib():
     from licensee_tpu_torch.kernels.build import load_library
 
@@ -132,6 +150,63 @@ def _raise_on(err: int, kernel: str) -> None:
 # -- K1 ---------------------------------------------------------------------
 
 
+def k1_row_stride(W: int) -> int:
+    """K1's shared-memory row stride in words: W rounded up to whole
+    8-word k-steps, then to 8 mod 32, so the 8-byte fragment loads of a
+    warp hit 32 distinct banks."""
+    w8 = _round_up(W, 8)
+    return w8 + (40 - w8 % 32) % 32
+
+
+def k1_smem_bytes(W: int, tc: int) -> int:
+    """K1's dynamic shared memory: the block's blob rows, two template
+    chunks of ``tc`` rows and their raw and decoded meta rows."""
+    return 4 * k1_row_stride(W) * (K1_BM + 2 * tc) + 4 * 2 * tc * META_COLS \
+        + 16 * tc
+
+
+@functools.lru_cache(maxsize=256)
+def fused_schedule(B: int, T: int, W: int, n_sms: int):
+    """K1's launch shape: (splits, per_split, tc).
+
+    Where the 64-row blob tiles give fewer than `K1_BLOCKS_PER_SM`
+    blocks per SM, the templates are split over that many more blocks
+    per tile, in slices of ``per_split`` (whole n8 tiles, none empty);
+    the main path's B=4096 at T=47 runs 64 tiles x 3 slices of 16.
+    Each block streams its slice in chunks of ``tc`` templates (at most
+    32, and less where the shared memory would not hold 32).  Raises
+    where W is too wide for any chunk."""
+    n8 = -(-max(T, 1) // 8)
+    tiles = -(-max(B, 1) // K1_BM)
+    target = K1_BLOCKS_PER_SM * n_sms
+    splits = min(n8, -(-target // tiles)) if tiles < target else 1
+    per_split = 8 * -(-n8 // splits)
+    tc = min(K1_TC, per_split)
+    while tc > 8 and k1_smem_bytes(W, tc) > K1_SMEM_CAP:
+        tc -= 8
+    if k1_smem_bytes(W, tc) > K1_SMEM_CAP:
+        raise ValueError(
+            f"K1 holds a block's 64 blob rows in shared memory: W={W} "
+            "words is too wide"
+        )
+    return -(-max(T, 1) // per_split), per_split, tc
+
+
+# per device: one int32 counter per blob tile, zero between launches of
+# `best_match_fused` (each launch leaves them zero), so the kernel's
+# cross-block merge needs no memset.  Launches that share them are
+# ordered on one stream, as the batch path's are.
+_TICKETS: dict = {}
+
+
+def _tickets(dev: torch.device, n: int) -> torch.Tensor:
+    have = _TICKETS.get(dev.index)
+    if have is None or have.numel() < n:
+        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _TICKETS[dev.index] = have
+    return have
+
+
 def score_pairs_fused_plain(meta, tpl_bits, file_bits, n_words, lengths,
                             cc_fp):
     """K1's function in plain PyTorch: popcount overlaps, then the score
@@ -145,6 +220,33 @@ def score_pairs_fused_plain(meta, tpl_bits, file_bits, n_words, lengths,
     )
 
 
+def best_match_fused_plain(meta, tpl_bits, file_bits, n_words, lengths,
+                           cc_fp):
+    """K1's fused first-max in plain PyTorch: the planes, then the exact
+    int64 tournament."""
+    return dice_ref.argmax_exact(*score_pairs_fused_plain(
+        meta, tpl_bits, file_bits, n_words, lengths, cc_fp))
+
+
+def _check_k1(name, meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
+    """The checks both K1 entry points make; returns (B, T, W, device)."""
+    B, W = file_bits.shape
+    T = tpl_bits.shape[0]
+    dev = file_bits.device
+    _check(meta, "meta", torch.int32, (T, META_COLS), dev)
+    _check(tpl_bits, "tpl_bits", torch.int32, (T, W), dev)
+    _check(file_bits, "file_bits", torch.int32, (B, W), dev)
+    _check(n_words, "n_words", torch.int32, (B,), dev)
+    _check(lengths, "lengths", torch.int32, (B,), dev)
+    _check(cc_fp, "cc_fp", torch.bool, (B,), dev)
+    if W % 4 or any(t.data_ptr() % 16 for t in (meta, tpl_bits, file_bits)):
+        raise ValueError(
+            f"{name} copies 16-byte pieces: W must be a multiple of 4 and "
+            "meta and the bitsets 16-byte aligned"
+        )
+    return B, T, W, dev
+
+
 def score_pairs_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
     """Exact (num, den) int32[B, T] for every (blob, template) pair.
 
@@ -155,33 +257,59 @@ def score_pairs_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
         return score_pairs_fused_plain(
             meta, tpl_bits, file_bits, n_words, lengths, cc_fp
         )
-    B, W = file_bits.shape
-    T = tpl_bits.shape[0]
-    dev = file_bits.device
-    _check(meta, "meta", torch.int32, (T, META_COLS), dev)
-    _check(tpl_bits, "tpl_bits", torch.int32, (T, W), dev)
-    _check(file_bits, "file_bits", torch.int32, (B, W), dev)
-    _check(n_words, "n_words", torch.int32, (B,), dev)
-    _check(lengths, "lengths", torch.int32, (B,), dev)
-    _check(cc_fp, "cc_fp", torch.bool, (B,), dev)
-    if W % 4 or file_bits.data_ptr() % 16 or tpl_bits.data_ptr() % 16:
-        raise ValueError(
-            "score_pairs_fused reads 16-byte rows: W must be a multiple "
-            "of 4 and the bitsets 16-byte aligned"
-        )
+    B, T, W, dev = _check_k1("score_pairs_fused", meta, tpl_bits, file_bits,
+                             n_words, lengths, cc_fp)
     num = torch.empty((B, T), dtype=torch.int32, device=dev)
     den = torch.empty((B, T), dtype=torch.int32, device=dev)
     if B == 0 or T == 0:
         return num, den
+    _, per_split, tc = fused_schedule(B, T, W, _sm_count(dev.index))
     err = _launch(
         dev, _lib().dice_score_fused,
         meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
         n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
-        num.data_ptr(), den.data_ptr(), B, T, W,
+        num.data_ptr(), den.data_ptr(), B, T, W, per_split, tc,
     )
     LAUNCHES["score_pairs_fused"] += 1
     _raise_on(err, "score_pairs_fused")
     return num, den
+
+
+def best_match_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
+    """The exact top-1 (idx, num, den) int32[B] over T >= 1 templates: the
+    first template of greatest num/den (compared in int64) per blob,
+    (0, -1, 1) where every template is excluded.  Takes what
+    `score_pairs_fused` takes; one launch, no [B, T] planes."""
+    if file_bits.device.type != "cuda":
+        return best_match_fused_plain(
+            meta, tpl_bits, file_bits, n_words, lengths, cc_fp
+        )
+    B, T, W, dev = _check_k1("best_match_fused", meta, tpl_bits, file_bits,
+                             n_words, lengths, cc_fp)
+    if T == 0:
+        raise ValueError("best_match_fused needs at least one template")
+    if B == 0:
+        return torch.empty((3, 0), dtype=torch.int32, device=dev).unbind(0)
+    splits, per_split, tc = fused_schedule(B, T, W, _sm_count(dev.index))
+    # one allocation: the (idx, num, den) rows, then, where the templates
+    # are split over blocks, the blocks' partial bests
+    buf = torch.empty(3 * B * (1 + (splits if splits > 1 else 0)),
+                      dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    scratch = tickets = None
+    if splits > 1:
+        scratch = ptr + 4 * 3 * B
+        tickets = _tickets(dev, -(-B // K1_BM)).data_ptr()
+    err = _launch(
+        dev, _lib().dice_best_fused,
+        meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
+        n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
+        ptr, ptr + 4 * B, ptr + 8 * B, scratch, tickets,
+        B, T, W, per_split, tc,
+    )
+    LAUNCHES["best_match_fused"] += 1
+    _raise_on(err, "best_match_fused")
+    return buf[: 3 * B].view(3, B).unbind(0)
 
 
 # -- K2 ---------------------------------------------------------------------
@@ -218,11 +346,6 @@ def mma_schedule(B: int, T: int, W: int, n_sms: int):
         per = -(-n_stages // splits)
         splits = -(-n_stages // per)
     return bn, splits
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def overlap_pairs_mma(tpl_unpacked, file_bits, n_templates: int):
@@ -279,19 +402,22 @@ def make_best_match_fn(ct: CorpusTensors, method: str):
     """A scorer closed over the corpus constants on ``ct``'s device:
     ``fn(file_bits, n_words, lengths, cc_fp)`` on numpy rows (uint32[B, W]
     bits, int32[B] columns, bool[B] flags) returns the exact top-1
-    (idx, num, den) as numpy int32[B] arrays."""
+    (idx, num, den) as numpy int32[B] arrays.  The K1 methods run the
+    fused first-max (`best_match_fused`, one launch); the K2 methods run
+    K2, then the score algebra and the argmax in PyTorch."""
     device = ct.bits.device
     if method in K1_METHODS:
         meta = pack_meta(ct)
 
-        def scores(fb, nw, ln, cf):
-            return score_pairs_fused(meta, ct.bits, fb, nw, ln, cf)
+        def best(fb, nw, ln, cf):
+            return best_match_fused(meta, ct.bits, fb, nw, ln, cf)
     elif method in K2_METHODS:
         tpl = pack_templates_mma(ct)
 
-        def scores(fb, nw, ln, cf):
+        def best(fb, nw, ln, cf):
             overlap = overlap_pairs_mma(tpl, fb, ct.n_templates)
-            return dice_ref.finish_scores(ct, overlap, nw, ln, cf)
+            return dice_ref.argmax_exact(
+                *dice_ref.finish_scores(ct, overlap, nw, ln, cf))
     else:
         raise ValueError(f"unknown scoring method: {method!r}")
 
@@ -302,7 +428,7 @@ def make_best_match_fn(ct: CorpusTensors, method: str):
         nw = torch.from_numpy(np.asarray(n_words, dtype=np.int32)).to(device)
         ln = torch.from_numpy(np.asarray(lengths, dtype=np.int32)).to(device)
         cf = torch.from_numpy(np.asarray(cc_fp, dtype=bool)).to(device)
-        num, den = scores(fb, nw, ln, cf)
-        return tuple(t.cpu().numpy() for t in dice_ref.argmax_exact(num, den))
+        # one copy to the host, not three
+        return tuple(torch.stack(best(fb, nw, ln, cf)).cpu().numpy())
 
     return fn

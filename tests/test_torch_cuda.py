@@ -84,6 +84,93 @@ def test_mma_kernel_matches_plain_at_ragged_shapes(card, B, T, W):
         assert splits > 1
 
 
+def k1_case(card, rng, B, T, W, valid_p=0.95, cc_p=0.1):
+    """Seeded K1 inputs on the card: random bitsets, a meta table with
+    some invalid and some CC templates, and blob columns."""
+    bits = rng.integers(0, 2**32, (T, W), dtype=np.uint32)
+    fb = rng.integers(0, 2**32, (B, W), dtype=np.uint32)
+    meta = np.zeros((T, dice_cuda.META_COLS), np.int32)
+    meta[:, dice_cuda.N_WF] = rng.integers(50, 3000, T)
+    meta[:, dice_cuda.N_FIELDSET] = rng.integers(0, 4, T)
+    meta[:, dice_cuda.FIELD_COUNT] = rng.integers(0, 6, T)
+    meta[:, dice_cuda.ALT_COUNT] = rng.integers(0, 40, T)
+    meta[:, dice_cuda.LENGTH] = rng.integers(100, 60000, T)
+    meta[:, dice_cuda.CC_FLAG] = rng.random(T) < cc_p
+    meta[:, dice_cuda.VALID] = rng.random(T) < valid_p
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(card)
+
+    return (dev(meta), dev(bits.view(np.int32)), dev(fb.view(np.int32)),
+            dev(rng.integers(0, 3000, B).astype(np.int32)),
+            dev(rng.integers(0, 60000, B).astype(np.int32)),
+            dev(rng.random(B) < 0.3))
+
+
+def assert_k1_matches_plain(args):
+    got = dice_cuda.best_match_fused(*args)
+    want = dice_cuda.best_match_fused_plain(*args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    planes = dice_cuda.score_pairs_fused(*args)
+    for a, b in zip(planes, dice_cuda.score_pairs_fused_plain(*args)):
+        assert torch.equal(a, b)
+    assert not dice_cuda._TICKETS[args[0].device.index].any()
+    return got
+
+
+@pytest.mark.parametrize("W", [4, 112, 132])
+@pytest.mark.parametrize("T", [1, 47, 63, 608])
+@pytest.mark.parametrize("B", [1, 347, 1565, 4097])
+def test_fused_k1_matches_plain_at_ragged_shapes(card, B, T, W):
+    """K1's best and planes epilogues on random bits at ragged B, T and W,
+    with the templates split over blocks (small B) and not."""
+    args = k1_case(card, np.random.default_rng(B * 1000 + T * 10 + W),
+                   B, T, W)
+    dice_cuda._tickets(args[0].device, 1)  # checked below, even unsplit
+    before = dice_cuda.LAUNCHES["best_match_fused"]
+    assert_k1_matches_plain(args)
+    assert dice_cuda.LAUNCHES["best_match_fused"] == before + 1
+
+
+@pytest.mark.parametrize("B, T", [(347, 608), (4096, 47), (33, 200)])
+def test_fused_k1_ties_and_exclusions(card, B, T):
+    """Blobs equal to templates whose every slice of the kernel's split
+    repeats the first (exact ties across split boundaries, which the
+    lowest index must win), and rows where every template is excluded
+    (the CC guard, invalid templates)."""
+    rng = np.random.default_rng(T + B)
+    meta, bits, *_ = k1_case(card, rng, B, T, 132)
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, per_split, _ = dice_cuda.fused_schedule(B, T, 132, n_sms)
+    assert splits > 1
+    # template t repeats template t mod per_split, rounded down to even:
+    # ties inside a slice and across every split boundary
+    dup = (torch.arange(T, device=card) % per_split) // 2 * 2
+    bits = bits[dup].contiguous()
+    meta = meta[dup].contiguous()
+    meta[:, dice_cuda.VALID] = 1
+    meta[:, dice_cuda.CC_FLAG] = 0
+    src = torch.from_numpy(rng.integers(0, T, B)).to(card)
+    fb = bits[src].contiguous()
+    nw = meta[src, dice_cuda.N_WF].contiguous()
+    ln = meta[src, dice_cuda.LENGTH].contiguous()
+    cf = torch.zeros(B, dtype=torch.bool, device=card)
+    cf[::3] = True
+    idx, num, den = assert_k1_matches_plain((meta, bits, fb, nw, ln, cf))
+    assert (idx < per_split).all() and (idx % 2 == 0).all()
+    assert (num >= 0).all()
+    # every template CC: the flagged rows have nothing left
+    meta_cc = meta.clone()
+    meta_cc[:, dice_cuda.CC_FLAG] = 1
+    idx, num, den = assert_k1_matches_plain((meta_cc, bits, fb, nw, ln, cf))
+    assert (idx[cf] == 0).all() and (num[cf] == -1).all()
+    assert (den[cf] == 1).all() and (num[~cf] >= 0).all()
+    meta_cc[:, dice_cuda.VALID] = 0
+    idx, num, den = assert_k1_matches_plain((meta_cc, bits, fb, nw, ln, cf))
+    assert (idx == 0).all() and (num == -1).all() and (den == 1).all()
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_take(card):
     ct = convert.corpus_tensors(default_corpus(), card)
     meta = dice_cuda.pack_meta(ct)
@@ -98,6 +185,26 @@ def test_wrappers_refuse_what_the_kernels_cannot_take(card):
     with pytest.raises(ValueError, match="multiple of 4"):
         dice_cuda.overlap_pairs_mma(
             dice_cuda.pack_templates_mma(ct), fb, ct.n_templates)
+    B, W = 5, ct.bits.shape[1]
+    cols = (ones[:B], ones[:B], flags[:B])
+    good = ct.bits[:B].contiguous()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        dice_cuda.best_match_fused(meta, fb, fb[:B].contiguous(), *cols)
+    shifted = torch.empty(B * W + 1, dtype=torch.int32, device=card)[1:]
+    shifted = shifted.view(B, W)  # 4 bytes past a 16-byte boundary
+    shifted.copy_(good)
+    with pytest.raises(ValueError, match="aligned"):
+        dice_cuda.best_match_fused(meta, ct.bits, shifted, *cols)
+    with pytest.raises(TypeError):
+        dice_cuda.best_match_fused(meta, ct.bits, good.float(), *cols)
+    with pytest.raises(TypeError):
+        dice_cuda.best_match_fused(meta, ct.bits, good, ones[:B],
+                                   ones[:B], ones[:B])
+    with pytest.raises(ValueError, match="on cpu"):
+        dice_cuda.best_match_fused(meta, ct.bits, good, ones[:B].cpu(),
+                                   ones[:B], flags[:B])
+    with pytest.raises(ValueError, match="at least one template"):
+        dice_cuda.best_match_fused(meta[:0], ct.bits[:0], good, *cols)
 
 
 def test_batch_detect_corpus_dir_on_the_card_matches_cpu(card, tmp_path):
@@ -108,7 +215,7 @@ def test_batch_detect_corpus_dir_on_the_card_matches_cpu(card, tmp_path):
     spdx_dir = synth_spdx_dir(str(tmp_path / "src"), 300, seed=1)
     manifest = chip_smoke.write_spdx_manifest(np, str(tmp_path / "rows"),
                                               spdx_dir, seed=2, n_files=400)
-    for method, kernel in (("pallas", "score_pairs_fused"),
+    for method, kernel in (("pallas", "best_match_fused"),
                            ("pallas-mxu", "overlap_pairs_mma")):
         outs = []
         for device in ("cpu", "cuda"):
@@ -132,7 +239,7 @@ def test_batch_detect_on_the_card_matches_cpu(card, tmp_path):
     )
     manifest = tmp_path / "manifest.txt"
     manifest.write_text("\n".join(paths) + "\n", encoding="utf-8")
-    for method, kernel in (("pallas", "score_pairs_fused"),
+    for method, kernel in (("pallas", "best_match_fused"),
                            ("pallas-mxu", "overlap_pairs_mma")):
         outs = []
         for device in ("cpu", "cuda"):

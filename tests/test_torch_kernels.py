@@ -197,6 +197,27 @@ def test_fused_score_plain_matches_pallas_kernel(corpus, B):
     assert_same(ours, ref)
 
 
+@pytest.mark.parametrize("B", [100])
+def test_best_fused_plain_matches_pallas_kernel(corpus, B):
+    """K1's fused first-max (the CPU path of `best_match_fused`) against
+    the Pallas kernel and its argmax (`best_match_pallas`) in interpret
+    mode, on blobs half of which copy templates."""
+    bits, n_words, lengths, cc_fp = random_features(corpus.n_lanes, B,
+                                                    seed=400 + B)
+    src = np.arange(B) % corpus.n_templates
+    bits[::2] = np.asarray(corpus.bits)[src[::2]]
+    n_words[::2] = np.asarray(corpus.n_wf)[src[::2]]
+    feats = (bits, n_words, lengths, cc_fp)
+    # `best_match_pallas`, its tournament jitted (eager, it compiles per op)
+    ref = jax_argmax(*dice_pallas.score_pairs_pallas(
+        jax_arrays(corpus), *feats, interpret=True))
+    ct = to_port(corpus)
+    ours = dice_cuda.best_match_fused(
+        dice_cuda.pack_meta(ct), ct.bits, *torch_features(*feats))
+    assert_same(ours, ref)
+    assert_same(ours, jax_best_match(jax_arrays(corpus), *feats))
+
+
 @pytest.mark.parametrize("B", [7, 129])
 def test_mma_overlap_plain_matches_pallas_kernel(corpus, B):
     """K2's plain version (the CPU path of `overlap_pairs_mma`) against
@@ -322,6 +343,9 @@ def test_plain_versions_count_no_launches(corpus):
     ct = to_port(corpus)
     feats = torch_features(*random_features(corpus.n_lanes, 3, seed=1))
     dice_cuda.score_pairs_fused(dice_cuda.pack_meta(ct), ct.bits, *feats)
+    dice_cuda.best_match_fused(dice_cuda.pack_meta(ct), ct.bits, *feats)
     dice_cuda.overlap_pairs_mma(
         dice_cuda.pack_templates_mma(ct), feats[0], ct.n_templates)
-    assert dice_cuda.LAUNCHES == {"score_pairs_fused": 0, "overlap_pairs_mma": 0}
+    assert dice_cuda.LAUNCHES == {"score_pairs_fused": 0,
+                                  "best_match_fused": 0,
+                                  "overlap_pairs_mma": 0}
