@@ -7,7 +7,10 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
 1. device: the card's name and power limit (nvidia-smi), its torch name,
    the device count, its SM count and maximum SM clock;
 2. build: both kernel sources of `licensee_tpu_torch/csrc/` compiled by
-   nvcc for sm_90a, with ptxas's register/shared-memory report;
+   nvcc for sm_90a, with ptxas's register/shared-memory report, and,
+   meanwhile, the native featurizer (`native/pipeline.cpp`,
+   `native/textops.cpp`) by g++ against libpcre2; the run fails if the
+   native featurizer does not load (a Python fallback would hide it);
 3. kernels: K1 and K2 on seeded random features at the main paths'
    shapes (one 4096-row batch at the vendored width T=47, W=112 and at
    the synthetic-SPDX width T=608, W=132) and at B=262144 at both
@@ -37,8 +40,27 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    kernels.  Each output must be byte-identical to the same run with
    --device cpu, each kernel must have launched during its run, and the
    K1 runs must have run neither the planes kernel nor an argmax on the
-   card.  A row's ``launches`` counts its kernel over its width's card
-   runs; the planes kernel is on no main path and shows 0.
+   card.  The native vendored run must also be byte-identical to the
+   same run with LICENSEE_TPU_NO_NATIVE=1 (the pure-Python featurizer,
+   in a child process);
+5. default flags: `batch-detect` as a user types it (`auto` -> K1, the
+   native featurizer, workers = the host's CPU count, --pipeline-depth
+   2, --coalesce-batches 32, resume on) over a seeded manifest of 50,001
+   vendored rows over 12,000 distinct files, most rows verbatim repeats
+   of a few hundred texts, as in real license corpora; then the same
+   over the T=608 manifest of phase 4.  Each output must be
+   byte-identical to --device cpu and to --pipeline-depth 1 --workers 1.
+   The vendored run is also made with --featurize-procs (one spawned
+   worker process per CPU) and must give the same bytes; its output is
+   then cut mid-line and resumed: the sha256 must equal the full run's
+   and the sidecar must not change.  A last run under torch.profiler
+   gives the card's busy and idle share.
+   Every run prints rows/s, its stage seconds, the pipeline lanes'
+   occupancy and the dispatch set-up split.
+
+A row's ``launches`` counts its kernel over its width's card runs of
+phases 4 and 5, each run between a reset of the counts and a read; the
+planes kernel is on no main path and shows 0.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -143,13 +165,42 @@ def phase_device(torch) -> tuple[dict, float]:
 # -- phase 2: build ------------------------------------------------------------
 
 
-def phase_build() -> None:
-    from licensee_tpu_torch.kernels import build
+def load_native() -> float:
+    """Build (if stale) and load the native featurizer; raises with g++'s
+    or the loader's message unless it loads (`pipeline.load()` would
+    turn that into None, and the run into the Python fallback).
+    Returns the seconds it took."""
+    from licensee_tpu_torch.native import build, pipeline, textops
 
     t0 = time.perf_counter()
-    report = build.build(verbose=True)
-    log(f"build: {len(build.sources())} sources -> {build.LIBRARY} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    build.build_and_load("pipeline", (":libpcre2-8.so.0",))
+    build.build_and_load("textops")
+    if pipeline.load() is None or textops.load() is None:
+        raise RuntimeError("the native featurizer did not load")
+    return time.perf_counter() - t0
+
+
+def phase_build() -> None:
+    from concurrent.futures import ThreadPoolExecutor
+
+    from licensee_tpu_torch.kernels import build
+
+    pcre = subprocess.run(["ldconfig", "-p"], capture_output=True,
+                          text=True).stdout
+    log("libpcre2: " + "; ".join(
+        line.strip() for line in pcre.splitlines() if "pcre2-8" in line))
+    t0 = time.perf_counter()
+    # g++ for the native featurizer runs beside the nvcc processes
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native = pool.submit(load_native)
+        report = build.build(verbose=True)
+        log(f"build: {len(build.sources())} sources -> {build.LIBRARY} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        native_s = native.result()
+    from licensee_tpu_torch.native import build as native_build
+
+    log(f"build: native featurizer -> {native_build.LIB_DIR} loaded after "
+        f"{native_s:.1f} s")
     for line in report.splitlines():
         if any(k in line for k in ("registers", "spill", "Compiling", "C75")):
             log("  ptxas: " + line.strip())
@@ -493,9 +544,9 @@ def mutate(text: str, rng, rate: float) -> str:
     return "".join(out)
 
 
-def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
-    """The vendored slice's manifest: the vendored templates rendered with
-    field values and the test fixtures, then seeded mutations of them."""
+def vendored_bases() -> list:
+    """(name, text) of the vendored templates rendered with field values,
+    then of the test fixtures."""
     from licensee_tpu_torch.corpus.fields import field_regex
     from licensee_tpu_torch.corpus.license import License
 
@@ -516,7 +567,41 @@ def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
                 raw = fh.read()
             if len(raw) <= 64 * 1024:
                 bases.append((f, raw.decode("utf-8", errors="ignore")))
-    return write_rows(np, root, bases, seed, n_files)
+    return bases
+
+
+def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
+    """The vendored slice's manifest: the vendored templates rendered with
+    field values and the test fixtures, then seeded mutations of them."""
+    return write_rows(np, root, vendored_bases(), seed, n_files)
+
+
+def write_big_manifest(np, root: str, seed: int, n_files: int = 12000,
+                       n_rows: int = 50000) -> str:
+    """The default-flags manifest: ``n_files`` distinct files, each a
+    rendered template or fixture (seven in ten, verbatim) or a seeded
+    mutation of one, listed once each and then ``n_rows - n_files``
+    times more in a seeded order, and one path that cannot be read."""
+    rng = np.random.default_rng(seed + 1)
+    bases = vendored_bases()
+    rates = (0.002, 0.01, 0.03, 0.1, 0.3)
+    files = []
+    for i in range(n_files):
+        name, text = bases[int(rng.integers(len(bases)))]
+        if rng.random() < 0.3:
+            text = mutate(text, rng, rates[int(rng.integers(len(rates)))])
+        path = os.path.join(root, f"f{i // 1000:02d}", f"{i:05d}.{name}")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(text)
+        files.append(path)
+    rows = files + [files[int(j)]
+                    for j in rng.integers(0, n_files, n_rows - n_files)]
+    rows.append(os.path.join(root, "missing", "LICENSE"))
+    manifest = os.path.join(root, "manifest.txt")
+    with open(manifest, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(rows) + "\n")
+    return manifest
 
 
 def write_spdx_manifest(np, root: str, spdx_dir: str, seed: int,
@@ -587,85 +672,259 @@ def counting_card_argmax(torch):
         dice_ref.argmax_exact = argmax
 
 
-def run_slice(np, torch, run: str, root: str, manifest: str,
-              extra: list[str]) -> dict:
-    """`batch-detect` over ``manifest`` through K1 and K2, each on the card
-    and with --device cpu; returns every kernel's launches over the card
-    runs.  The K1 run must take the fused first-max: no planes kernel and
-    no argmax on the card after it."""
+def read_rows(path: str, n_rows: int, what: str) -> bytes:
+    """The output's bytes, after checking it has one JSON row per
+    manifest entry."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    lines = data.decode().splitlines()
+    if len(lines) != n_rows:
+        raise AssertionError(
+            f"{what}: {len(lines)} rows for {n_rows} manifest entries")
+    for line in lines:
+        json.loads(line)
+    return data
+
+
+def describe(stats: dict, elapsed: float) -> str:
+    """rows/s, the lanes' occupancy, the dispatch split and the stage
+    seconds of one run, for the log (a resumed run counts the rows it
+    wrote)."""
+    n_rows = stats["total"]
+    run_s = stats["stage_seconds"]["elapsed"]
+    occ = stats.get("pipeline", {}).get("occupancy", {})
+    disp = stats.get("dispatch", {})
+    device = occ.get("device", 0.0)
+    return (
+        f"{n_rows} rows: {n_rows / run_s:.1f} rows/s over the run's "
+        f"{run_s:.3f} s ({n_rows / elapsed:.1f} rows/s over the command's "
+        f"{elapsed:.2f} s, set-up included); dice-bound rows "
+        f"{stats['device_rows']}, dedupe hits {stats['dedupe_hits']}; lanes "
+        f"featurize {occ.get('featurize', 0.0):.4f}, device {device:.4f} "
+        f"(not in flight {1 - device:.4f}), writer "
+        f"{occ.get('writer', 0.0):.4f}; dispatch set-up "
+        f"{disp.get('compiles', 0)} in {disp.get('compile_s', 0.0):.4f} s, "
+        f"steady {disp.get('dispatches', 0)} in "
+        f"{disp.get('dispatch_s', 0.0):.4f} s; stage_seconds "
+        f"{json.dumps(stats['stage_seconds'])}"
+    )
+
+
+def drive(torch, what: str, argv: list[str], n_rows: int):
+    """One `batch-detect` run through the CLI, with the kernels' launch
+    counts reset just before it and read just after.  A K1 run (every
+    run but --method pallas-mxu) fails if it ran the planes kernel or the
+    argmax on the card.  Returns (output bytes, stats, seconds,
+    launches)."""
     from licensee_tpu_torch.kernels import dice_cuda
 
+    on_card = "cpu" not in argv
+    if on_card:
+        torch.cuda.synchronize()
+    dice_cuda.reset_launches()
+    t0 = time.perf_counter()
+    with counting_card_argmax(torch) as card_argmax:
+        stats = run_cli([*argv, "--stats"])
+    elapsed = time.perf_counter() - t0
+    launches = dict(dice_cuda.LAUNCHES) if on_card else {}
+    if on_card and "pallas-mxu" not in argv and (
+            card_argmax[0] or launches["score_pairs_fused"]):
+        raise AssertionError(
+            f"{what}: the K1 path ran the planes kernel or argmax_exact on "
+            f"the card ({card_argmax[0]})")
+    data = read_rows(argv[argv.index("--output") + 1], n_rows, what)
+    log(f"run {what}: {describe(stats, elapsed)}; launches "
+        f"{json.dumps(launches)}")
+    return data, stats, elapsed, launches
+
+
+def count_rows(manifest: str) -> int:
     with open(manifest, encoding="utf-8") as fh:
-        n_rows = sum(1 for line in fh if line.strip())
-    launches = dict.fromkeys(dice_cuda.LAUNCHES, 0)
+        return sum(1 for line in fh if line.strip())
+
+
+def run_slice(torch, run: str, root: str, manifest: str,
+              extra: list[str], launches: dict) -> None:
+    """`batch-detect` over ``manifest`` through K1 and K2, each on the
+    card and with --device cpu; adds every kernel's launches over the
+    card runs to ``launches[run, kernel]``."""
+    n_rows = count_rows(manifest)
     for method, kernel in (("pallas", "best_match_fused"),
                            ("pallas-mxu", "overlap_pairs_mma")):
         outs = {}
         for device in ("cpu", "cuda"):
             out = os.path.join(root, f"{run}.{method}.{device}.jsonl")
-            argv = ["batch-detect", manifest, "--output", out, *extra,
-                    "--method", method, "--device", device, "--stats"]
-            if device == "cuda":
-                torch.cuda.synchronize()
-                dice_cuda.reset_launches()
-            t0 = time.perf_counter()
-            with counting_card_argmax(torch) as card_argmax:
-                stats = run_cli(argv)
-            elapsed = time.perf_counter() - t0
-            if device == "cuda":
-                for name, n in dice_cuda.LAUNCHES.items():
-                    launches[name] += n
-                if method == "pallas" and (
-                        card_argmax[0]
-                        or dice_cuda.LAUNCHES["score_pairs_fused"]):
-                    raise AssertionError(
-                        f"{run} {method}: the K1 path ran the planes kernel "
-                        f"or argmax_exact on the card ({card_argmax[0]})")
-            with open(out, "rb") as fh:
-                outs[device] = fh.read()
-            lines = outs[device].decode().splitlines()
-            if len(lines) != n_rows:
-                raise AssertionError(
-                    f"{run} {method}/{device}: {len(lines)} rows for "
-                    f"{n_rows} manifest entries")
-            for line in lines:
-                json.loads(line)
-            log(f"slice {run} {method} --device {device}: {n_rows} rows in "
-                f"{elapsed:.2f} s ({n_rows / elapsed:.1f} rows/s), "
-                f"dice-bound rows {stats['device_rows']}, dice matches "
-                f"{stats['dice_matched']}, stats {json.dumps(stats)}")
+            outs[device], _stats, _s, got = drive(
+                torch, f"slice {run} {method} --device {device}",
+                ["batch-detect", manifest, "--output", out, *extra,
+                 "--method", method, "--device", device], n_rows)
+            for name, n in got.items():
+                launches[run, name] = launches.get((run, name), 0) + n
         if outs["cuda"] != outs["cpu"]:
             raise AssertionError(
                 f"{run} {method}: the cuda JSONL differs from the cpu JSONL")
-        if launches[kernel] < 1:
+        if not launches.get((run, kernel)):
             raise AssertionError(
                 f"{run} {method}: {kernel} never launched on the main path")
         log(f"slice {run} {method}: cuda output byte-identical to cpu; "
-            f"{kernel} launches {launches[kernel]}")
-    return launches
+            f"{kernel} launches {launches[run, kernel]}")
+
+
+def featurizer_check(root: str, manifest: str) -> None:
+    """The vendored slice's native K1 run against the same run on the
+    pure-Python featurizer (LICENSEE_TPU_NO_NATIVE=1, in a child process
+    that the call waits for)."""
+    out = os.path.join(root, "vendored.pallas.no-native.jsonl")
+    env = dict(os.environ, LICENSEE_TPU_NO_NATIVE="1")
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "licensee_tpu_torch.cli.main", "batch-detect",
+         manifest, "--output", out, "--method", "pallas", "--stats"],
+        env=env, capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+    )
+    if child.returncode != 0:
+        raise RuntimeError(f"LICENSEE_TPU_NO_NATIVE run exited "
+                           f"{child.returncode}: {child.stderr[-2000:]}")
+    elapsed = time.perf_counter() - t0
+    n_rows = count_rows(manifest)
+    stats = json.loads(child.stderr.strip().splitlines()[-1])
+    python = read_rows(out, n_rows, "featurizer check")
+    with open(os.path.join(root, "vendored.pallas.cuda.jsonl"), "rb") as fh:
+        native = fh.read()
+    if python != native:
+        raise AssertionError("the native featurizer's JSONL differs from "
+                             "the pure-Python featurizer's")
+    log(f"featurizer check: native output byte-identical to "
+        f"LICENSEE_TPU_NO_NATIVE=1; that run: "
+        f"{describe(stats, elapsed)}")
+
+
+def device_busy_seconds(prof) -> float:
+    """The card's busy seconds in a profiled window: the device time of
+    every kernel, copy and fill it recorded (one stream, so they do not
+    overlap)."""
+    total_us = 0.0
+    for evt in prof.key_averages():
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = getattr(evt, "self_cuda_time_total", 0.0)
+        total_us += t
+    return total_us / 1e6
+
+
+def default_flags(torch, what: str, root: str, manifest: str,
+                  extra: list[str], launches: dict, run: str,
+                  drill: bool) -> None:
+    """`batch-detect` at its default flags over ``manifest``, against
+    --device cpu and --pipeline-depth 1 --workers 1; with ``drill``, the
+    resume drill and a profiled run for the card's busy share."""
+    n_rows = count_rows(manifest)
+    card = smi("name,power.limit")
+    log(f"default flags {what}: {n_rows} rows; {card}; host nproc "
+        f"{os.cpu_count()} ({len(os.sched_getaffinity(0))} usable)")
+
+    def one(label, *flags):
+        out = os.path.join(root, f"{run}.{label}.jsonl")
+        data, stats, elapsed, got = drive(
+            torch, f"{what} {label}",
+            ["batch-detect", manifest, "--output", out, *extra, *flags],
+            n_rows)
+        for name, n in got.items():
+            launches[run, name] = launches.get((run, name), 0) + n
+        return out, data, stats, got
+
+    out, full, stats, got = one("default")
+    if got["best_match_fused"] < 1:
+        raise AssertionError(f"{what}: best_match_fused never launched on "
+                             "the main path at default flags")
+    for label, flags in (("cpu", ["--device", "cpu"]),
+                         ("depth1-workers1",
+                          ["--pipeline-depth", "1", "--workers", "1"])):
+        if one(label, *flags)[1] != full:
+            raise AssertionError(f"{what}: the {label} JSONL differs from "
+                                 "the default run's")
+    log(f"default flags {what}: byte-identical to --device cpu and to "
+        "--pipeline-depth 1 --workers 1")
+    if not drill:
+        return
+    # worker processes instead of threads, spawned beside the parent's
+    # live CUDA context: the same bytes, and how far the GIL holds the
+    # threads back
+    procs = str(os.cpu_count())
+    if one(f"procs{procs}", "--featurize-procs", procs)[1] != full:
+        raise AssertionError(f"{what}: the --featurize-procs JSONL differs")
+    log(f"default flags {what}: --featurize-procs {procs} byte-identical")
+    import hashlib
+
+    with open(out + ".meta.json", "rb") as fh:
+        sidecar = fh.read()
+    cut = int(len(full) * 0.6)
+    while full[cut - 1 : cut] == b"\n":
+        cut += 1
+    with open(out, "wb") as fh:
+        fh.write(full[:cut])
+    kept = full[:cut].count(b"\n")
+    data, stats, _s, got = drive(
+        torch, f"{what} resumed after {kept} rows",
+        ["batch-detect", manifest, "--output", out, *extra], n_rows)
+    with open(out + ".meta.json", "rb") as fh:
+        if fh.read() != sidecar:
+            raise AssertionError(f"{what}: resume rewrote a different sidecar")
+    if hashlib.sha256(data).digest() != hashlib.sha256(full).digest():
+        raise AssertionError(f"{what}: the resumed output's sha256 differs")
+    if stats["total"] != n_rows - kept:
+        raise AssertionError(f"{what}: resume redid {stats['total']} rows, "
+                             f"not {n_rows - kept}")
+    for name, n in got.items():
+        launches[run, name] = launches.get((run, name), 0) + n
+    log(f"resume drill {what}: cut mid-line after {kept} rows, resumed: "
+        f"sha256 {hashlib.sha256(data).hexdigest()} equals the full run's, "
+        "sidecar unchanged")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _out, data, stats, _got = one("profiled")
+    torch.cuda.synchronize()
+    if data != full:
+        raise AssertionError(f"{what}: the profiled run's JSONL differs")
+    busy = device_busy_seconds(prof)
+    run_s = stats["stage_seconds"]["elapsed"]
+    log(f"device busy {what} (torch.profiler, the profiled run): "
+        f"{busy:.6f} s of the run's {run_s:.3f} s: busy share "
+        f"{busy / run_s:.6f}, idle share {1 - busy / run_s:.6f}"
+        if busy > 0 else
+        f"device busy {what}: not measured (the profiler recorded no "
+        "device time)")
 
 
 def phase_slice(np, torch, seed: int) -> dict:
-    """Both slices; returns {(run, kernel): launches}."""
+    """Phases 4 and 5; returns {(run, kernel): launches}."""
     from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        vendored = os.path.join(root, "vendored")
-        manifest = write_manifest(np, vendored, seed)
-        for kernel, n in run_slice(np, torch, "vendored", root, manifest,
-                                   []).items():
-            launches["vendored", kernel] = n
+        vendored = write_manifest(np, os.path.join(root, "vendored"), seed)
+        run_slice(torch, "vendored", root, vendored, [], launches)
+        featurizer_check(root, vendored)
         t0 = time.perf_counter()
         spdx_dir = synth_spdx_dir(os.path.join(root, "spdx-src"), SPDX_T,
                                   seed)
-        manifest = write_spdx_manifest(np, os.path.join(root, "spdx"),
-                                       spdx_dir, seed)
+        spdx = write_spdx_manifest(np, os.path.join(root, "spdx"), spdx_dir,
+                                   seed)
         log(f"slice spdx: {SPDX_T}-template synthetic SPDX directory and "
             f"manifest written in {time.perf_counter() - t0:.1f} s")
-        for kernel, n in run_slice(np, torch, "spdx", root, manifest,
-                                   ["--corpus", spdx_dir]).items():
-            launches["spdx", kernel] = n
+        run_slice(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
+                  launches)
+
+        t0 = time.perf_counter()
+        big = write_big_manifest(np, os.path.join(root, "big"), seed)
+        log(f"default flags: 50,001-row manifest over 12,000 files written "
+            f"in {time.perf_counter() - t0:.1f} s")
+        default_flags(torch, "vendored", root, big, [], launches,
+                      "vendored", drill=True)
+        default_flags(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
+                      launches, "spdx", drill=False)
     return launches
 
 
@@ -688,8 +947,8 @@ def main() -> int:
     rows = phase_kernels(np, torch, args.seed, sm_clocks_per_s)
     launches = phase_slice(np, torch, args.seed)
     for row in rows:
-        row["launches"] = launches[row.pop("slice_run"),
-                                   row["name"].split("@")[0]]
+        row["launches"] = launches.get(
+            (row.pop("slice_run"), row["name"].split("@")[0]), 0)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

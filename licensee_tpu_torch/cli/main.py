@@ -3,14 +3,19 @@
     python -m licensee_tpu_torch.cli.main batch-detect MANIFEST \\
         --output OUT.jsonl [--corpus vendored|spdx|DIR] [--method M] \\
         [--batch-size N] [--confidence N] [--no-dedupe] [--device cuda|cpu] \\
-        [--stats]
+        [--workers N] [--featurize-procs N] [--coalesce-batches N] \\
+        [--pipeline-depth N] [--no-resume] [--stats]
 
 `batch-detect --mode license` classifies a manifest of loose files (one
 path per line) and writes JSONL rows byte-identical to the JAX package's
-`licensee-tpu batch-detect`.  It runs on the CUDA device unless
-``--device cpu`` asks for the plain PyTorch scorers on the CPU.  The
-other verbs and options of `licensee_tpu/cli/main.py` wait for later
-slices (ROADMAP A).
+`licensee-tpu batch-detect`, through the same pipeline: featurize worker
+threads (or processes), coalesced device chunks, an overlap pipeline of
+device groups in flight, a writer thread, and resume of a partial
+``--output`` from its ``.meta.json`` sidecar.  It runs on the CUDA
+device unless ``--device cpu`` asks for the plain PyTorch scorers on the
+CPU.  Printing rows without ``--output``, ``--stripes``, ``--mesh``,
+``--device-lanes``, ``--progress``, containers and the other verbs of
+`licensee_tpu/cli/main.py` wait for later slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -68,8 +73,13 @@ def cmd_batch_detect(args) -> int:
             method=args.method,
             batch_size=args.batch_size,
             threshold=args.confidence,
+            workers=args.workers,
             mode=args.mode,
             dedupe=not args.no_dedupe,
+            featurize_procs=args.featurize_procs,
+            coalesce_batches=args.coalesce_batches,
+            corpus_source=args.corpus,
+            pipeline_depth=args.pipeline_depth,
             device=args.device,
         )
     except OSError as exc:
@@ -80,14 +90,36 @@ def cmd_batch_detect(args) -> int:
         # feature that waits for a later slice (NotImplementedError)
         print(f"error: {exc}", file=sys.stderr)
         return 1
+    from licensee_tpu_torch.projects.batch_project import ResumeConfigError
+
     try:
-        stats = project.run(args.output)
+        stats = project.run(args.output, resume=not args.no_resume)
     except OSError as exc:
         print(f"error: batch run I/O failure: {exc}", file=sys.stderr)
+        return 1
+    except ResumeConfigError as exc:
+        # a resume whose mode/corpus/threshold differs from the run that
+        # wrote the output (the .meta.json sidecar)
+        print(f"error: {exc}", file=sys.stderr)
         return 1
     if args.stats:
         print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
+
+
+def bounded(kind, lo):
+    """An argparse type: ``kind`` no smaller than ``lo`` (NaN refused),
+    so a typo fails before a large manifest loads."""
+
+    def parse(value):
+        v = kind(value)
+        if not (v >= lo):
+            raise argparse.ArgumentTypeError(f"must be >= {lo}, got {value!r}")
+        return v
+
+    # argparse embeds the callable's name in "invalid ... value"
+    parse.__name__ = f">={lo} {kind.__name__}"
+    return parse
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -101,7 +133,12 @@ def build_parser() -> argparse.ArgumentParser:
     )
     batch.add_argument("manifest", help="File with one path per line")
     batch.add_argument(
-        "--output", required=True, help="Write the JSONL rows here"
+        "--output", required=True,
+        help="Write the JSONL rows here (resumable)",
+    )
+    batch.add_argument(
+        "--no-resume", action="store_true",
+        help="Restart from scratch instead of resuming a partial --output",
     )
     batch.add_argument(
         "--corpus", default="vendored",
@@ -132,6 +169,35 @@ def build_parser() -> argparse.ArgumentParser:
     batch.add_argument(
         "--no-dedupe", action="store_true",
         help="Score every row, even verbatim repeats of earlier rows",
+    )
+    batch.add_argument("--workers", type=int, default=None,
+                       help="Featurization worker threads (default: cpu count)")
+    batch.add_argument(
+        "--featurize-procs", type=bounded(int, 0), default=0, metavar="N",
+        help=(
+            "Featurize in N worker PROCESSES instead of threads (for "
+            "hosts where the native pipeline is absent and thread "
+            "scaling disappoints; identical output, resume unchanged).  "
+            "Threads win when the native pipeline is up"
+        ),
+    )
+    batch.add_argument(
+        "--coalesce-batches", type=bounded(int, 1), default=32, metavar="N",
+        help=(
+            "How many produced batches may wait while their sparse "
+            "device rows (dedupe-heavy manifests) accumulate into full "
+            "device chunks; 1 disables coalescing (default 32)"
+        ),
+    )
+    batch.add_argument(
+        "--pipeline-depth", type=bounded(int, 1), default=2, metavar="N",
+        help=(
+            "How many dispatched device groups may be in flight at "
+            "once: 1 = the synchronous dispatch/await/write loop, >= 2 "
+            "= the overlap pipeline (featurize chunk N+1 while the "
+            "device scores N and the writer drains N-1; identical "
+            "output at every depth; default 2)"
+        ),
     )
     batch.add_argument(
         "--device", default="cuda", choices=["cuda", "cpu"],

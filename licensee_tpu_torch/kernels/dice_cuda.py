@@ -192,18 +192,20 @@ def fused_schedule(B: int, T: int, W: int, n_sms: int):
     return -(-max(T, 1) // per_split), per_split, tc
 
 
-# per device: one int32 counter per blob tile, zero between launches of
-# `best_match_fused` (each launch leaves them zero), so the kernel's
-# cross-block merge needs no memset.  Launches that share them are
-# ordered on one stream, as the batch path's are.
+# per (device, stream): one int32 counter per blob tile, zero between
+# launches of `best_match_fused` (each launch leaves them zero), so the
+# kernel's cross-block merge needs no memset.  Launches that share them
+# are ordered on their one stream; launches on two streams (the batch
+# path's dispatch stream and a caller's own) each get their own.
 _TICKETS: dict = {}
 
 
 def _tickets(dev: torch.device, n: int) -> torch.Tensor:
-    have = _TICKETS.get(dev.index)
+    key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    have = _TICKETS.get(key)
     if have is None or have.numel() < n:
         have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _TICKETS[dev.index] = have
+        _TICKETS[key] = have
     return have
 
 
@@ -398,37 +400,130 @@ K1_METHODS = ("popcount", "pallas")
 K2_METHODS = ("matmul", "pallas-mxu")
 
 
-def make_best_match_fn(ct: CorpusTensors, method: str):
-    """A scorer closed over the corpus constants on ``ct``'s device:
-    ``fn(file_bits, n_words, lengths, cc_fp)`` on numpy rows (uint32[B, W]
-    bits, int32[B] columns, bool[B] flags) returns the exact top-1
-    (idx, num, den) as numpy int32[B] arrays.  The K1 methods run the
-    fused first-max (`best_match_fused`, one launch); the K2 methods run
-    K2, then the score algebra and the argmax in PyTorch."""
-    device = ct.bits.device
-    if method in K1_METHODS:
-        meta = pack_meta(ct)
+@functools.cache
+def dispatch_stream(index: int) -> "torch.cuda.Stream":
+    """The one stream per device that the batch path dispatches on: with
+    several groups in flight, each chunk's copies to the card, its
+    launches (and K1's tickets, `_tickets`) and its copy back queue in
+    order behind the chunks before it."""
+    return torch.cuda.Stream(device=index)
 
-        def best(fb, nw, ln, cf):
-            return best_match_fused(meta, ct.bits, fb, nw, ln, cf)
-    elif method in K2_METHODS:
-        tpl = pack_templates_mma(ct)
 
-        def best(fb, nw, ln, cf):
-            overlap = overlap_pairs_mma(tpl, fb, ct.n_templates)
-            return dice_ref.argmax_exact(
-                *dice_ref.finish_scores(ct, overlap, nw, ln, cf))
-    else:
-        raise ValueError(f"unknown scoring method: {method!r}")
+class HostRows:
+    """Host staging rows for one dispatch chunk of up to ``capacity``
+    rows: the four feature columns the scorer reads and the (idx, num,
+    den) it writes back, as tensors and as numpy views of the same
+    memory.  Pinned (page-locked) for a scorer on a card, so the copies
+    both ways run asynchronously on the dispatch stream; the memory must
+    then not be refilled before the chunk's event completes."""
 
-    def fn(file_bits, n_words, lengths, cc_fp):
-        fb = torch.from_numpy(
-            np.ascontiguousarray(file_bits, dtype=np.uint32).view(np.int32)
-        ).to(device)
-        nw = torch.from_numpy(np.asarray(n_words, dtype=np.int32)).to(device)
-        ln = torch.from_numpy(np.asarray(lengths, dtype=np.int32)).to(device)
-        cf = torch.from_numpy(np.asarray(cc_fp, dtype=bool)).to(device)
-        # one copy to the host, not three
-        return tuple(torch.stack(best(fb, nw, ln, cf)).cpu().numpy())
+    __slots__ = ("capacity", "tensors", "bits", "n_words", "lengths",
+                 "cc_fp", "out")
 
-    return fn
+    def __init__(self, capacity: int, n_lanes: int, pin: bool):
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, pin_memory=pin)
+
+        self.capacity = capacity
+        self.tensors = (
+            zeros((capacity, n_lanes), torch.int32),
+            zeros(capacity, torch.int32),
+            zeros(capacity, torch.int32),
+            zeros(capacity, torch.bool),
+            zeros(3 * capacity, torch.int32),  # (idx, num, den), 3 x n
+        )
+        fb, nw, ln, cf, out = (t.numpy() for t in self.tensors)
+        self.bits = fb.view(np.uint32)
+        self.n_words, self.lengths, self.cc_fp, self.out = nw, ln, cf, out
+
+    def fill(self, bits, n_words, lengths, cc_fp) -> int:
+        """Copy ``n`` live rows into the first ``n`` rows; returns n."""
+        n = len(n_words)
+        if n > self.capacity:
+            raise ValueError(f"{n} rows exceed the slot's {self.capacity}")
+        self.bits[:n] = bits
+        self.n_words[:n] = n_words
+        self.lengths[:n] = lengths
+        self.cc_fp[:n] = cc_fp
+        return n
+
+    def result(self, n: int) -> np.ndarray:
+        """The (idx, num, den) of the first ``n`` rows, int32[3, n] (a
+        view: copy it before the slot is refilled)."""
+        return self.out[: 3 * n].reshape(3, n)
+
+
+class BestMatchScorer:
+    """The scorer the batch path dispatches, closed over the corpus
+    constants on ``ct``'s device: the exact top-1 (idx, num, den) of each
+    staged row.  The K1 methods run the fused first-max
+    (`best_match_fused`, one launch); the K2 methods run K2, then the
+    score algebra and the argmax in PyTorch.
+
+    `submit` is the non-blocking half: on a card it enqueues, on the
+    device's dispatch stream, the copies of the staged rows to the card,
+    the scoring and the copy of the stacked (idx, num, den) back into
+    the slot, then records and returns a CUDA event; on the CPU the
+    plain versions run at once and it returns None.  Calling the scorer
+    on numpy rows is the synchronous form of the two."""
+
+    def __init__(self, ct: CorpusTensors, method: str):
+        self.device = ct.bits.device
+        self.n_lanes = ct.bits.shape[1]
+        if method in K1_METHODS:
+            meta = pack_meta(ct)
+
+            def best(fb, nw, ln, cf):
+                return best_match_fused(meta, ct.bits, fb, nw, ln, cf)
+        elif method in K2_METHODS:
+            tpl = pack_templates_mma(ct)
+
+            def best(fb, nw, ln, cf):
+                overlap = overlap_pairs_mma(tpl, fb, ct.n_templates)
+                return dice_ref.argmax_exact(
+                    *dice_ref.finish_scores(ct, overlap, nw, ln, cf))
+        else:
+            raise ValueError(f"unknown scoring method: {method!r}")
+        self._best = best
+        self.stream = (
+            dispatch_stream(self.device.index)
+            if self.device.type == "cuda" else None
+        )
+
+    def host_rows(self, capacity: int) -> HostRows:
+        return HostRows(capacity, self.n_lanes,
+                        pin=self.device.type == "cuda")
+
+    def submit(self, rows: HostRows, n: int):
+        """Score ``rows``' first ``n`` rows into ``rows.out``; returns the
+        event that completes when they have landed (None on the CPU,
+        where they already have)."""
+        fb, nw, ln, cf = (t[:n] for t in rows.tensors[:4])
+        out = rows.tensors[4][: 3 * n]
+        if self.stream is None:
+            out.copy_(torch.stack(self._best(fb, nw, ln, cf)).view(-1))
+            return None
+        with torch.cuda.stream(self.stream):
+            dev = self.device
+            best = torch.stack(self._best(
+                *(t.to(dev, non_blocking=True) for t in (fb, nw, ln, cf))))
+            out.copy_(best.view(-1), non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        return done
+
+    def __call__(self, file_bits, n_words, lengths, cc_fp):
+        """``fn(file_bits, n_words, lengths, cc_fp)`` on numpy rows
+        (uint32[B, W] bits, int32[B] columns, bool[B] flags) returns the
+        exact top-1 (idx, num, den) as numpy int32[B] arrays."""
+        rows = self.host_rows(len(n_words))
+        n = rows.fill(file_bits, n_words, lengths, cc_fp)
+        done = self.submit(rows, n)
+        if done is not None:
+            done.synchronize()
+        return tuple(rows.result(n))
+
+
+def make_best_match_fn(ct: CorpusTensors, method: str) -> BestMatchScorer:
+    """The scorer for ``method`` (see `BestMatchScorer`)."""
+    return BestMatchScorer(ct, method)

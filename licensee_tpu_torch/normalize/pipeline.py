@@ -19,10 +19,10 @@ Stage 2 (`content_normalized`, reference content_helper.rb:153-168):
     url, copyright, title, block_markup, developed_by, end_of_terms,
     whitespace, mit_optional).
 
-This is the port's copy of `licensee_tpu/normalize/pipeline.py`, pure
-Python only: the native `textops` twin of the hottest passes waits for a
-later slice (ROADMAP A), and the JAX package's tests hold the two
-bit-identical.
+This is the port's copy of `licensee_tpu/normalize/pipeline.py`, with
+its `_native()` hook onto the port's own `native/textops.py` scanners
+(bit-identical C++ twins of the hottest passes; the regexes run where
+the library is unavailable).
 """
 
 from __future__ import annotations
@@ -159,6 +159,15 @@ def _get_title_regex():
     return global_title_regex()
 
 
+def _native():
+    """The native textops scanners (or None) — bit-identical C++ twins of
+    the hottest passes; the import is deferred to break the cycle with
+    VARIETAL_WORDS, and textops.load() memoizes itself."""
+    from licensee_tpu_torch.native import textops
+
+    return textops.load()
+
+
 # [`'"‘“’”] -> "'" is a pure character map: str.translate runs it at C
 # speed, byte-identically to _QUOTES.sub("'", ...)
 _QUOTE_TABLE = str.maketrans({ch: "'" for ch in "`'\"‘“’”"})
@@ -201,6 +210,11 @@ def _plain_strip(content: str, regex: re.Pattern, might: bool = True) -> str:
 
     ``might=False`` means a literal gate proved the regex cannot match:
     the sub is skipped but the squeeze/strip contract still holds."""
+    nat = _native()
+    if nat is not None:
+        if regex is REGEXES["whitespace"]:
+            return nat.strip_whitespace(content)
+        return nat.squeeze_strip(regex.sub(" ", content) if might else content)
     subbed = regex.sub(" ", content) if might else content
     return ruby_strip(squeeze_spaces(subbed))
 
@@ -222,7 +236,12 @@ class NormalizedContent:
             if cn is None:
                 cached = None
             else:
-                cached = frozenset(WORDSET_TOKEN.findall(cn))
+                nat = _native()
+                cached = (
+                    nat.wordset(cn)
+                    if nat is not None
+                    else frozenset(WORDSET_TOKEN.findall(cn))
+                )
             self.__dict__["_wordset"] = cached
         return cached
 
@@ -266,7 +285,8 @@ class NormalizedContent:
             c = ruby_strip(self.content if self.content is not None else "")
             c = self._strip_html(c)
             # literal gates: a pass whose pattern requires a byte/substring
-            # the text lacks cannot match
+            # the text lacks cannot match — same rationale (and the same
+            # gate set) as the native pipeline's plain_strip_gated
             c = _plain_strip(c, REGEXES["hrs"], might=_has_run3(c))
             c = self._strip_comments(c)
             c = _plain_strip(
@@ -287,22 +307,34 @@ class NormalizedContent:
         if cached is None:
             c = self.content_without_title_and_version.lower()
 
-            # normalizations (gsub only — no squeeze/strip side effects).
+            # normalizations (gsub only — no squeeze/strip side effects);
+            # the dash/quote/hyphenation/spelling passes run as native
+            # scanners when built (bit-identical, tests/test_textops.py).
             # Each gated pass is a literal no-op when its required byte is
             # absent; _HTTP and the quote class are literal/char-class
             # transforms, so str.replace / str.translate run them at C
-            # speed byte-identically.
+            # speed byte-identically on the fallback path.
+            nat = _native()
             c = _LISTS.sub(lambda m: "- " + m.group(1), c)
             c = c.replace("http:", "https:")
             c = c.replace("&", "and")
-            if "-" in c or "–" in c or "—" in c:
-                c = _DASHES.sub("-", c)
-            c = c.translate(_QUOTE_TABLE)
-            if "-" in c:
-                c = _HYPHENATED.sub(
-                    lambda m: m.group(1) + "-" + m.group(2), c
-                )
-            c = _SPELLING.sub(lambda m: VARIETAL_WORDS[m.group(0)], c)
+            has_dashish = "-" in c or "–" in c or "—" in c
+            if nat is not None:
+                if has_dashish:
+                    c = nat.dashes(c)
+                c = nat.quotes(c)
+                if "-" in c:
+                    c = nat.hyphenated(c)
+                c = nat.spelling(c)
+            else:
+                if has_dashish:
+                    c = _DASHES.sub("-", c)
+                c = c.translate(_QUOTE_TABLE)
+                if "-" in c:
+                    c = _HYPHENATED.sub(
+                        lambda m: m.group(1) + "-" + m.group(2), c
+                    )
+                c = _SPELLING.sub(lambda m: VARIETAL_WORDS[m.group(0)], c)
             if "_" in c or "*" in c or "~" in c:
                 c = REGEXES["span_markup"].sub(lambda m: m.group(1), c)
             if "\n\n" in c:

@@ -1,36 +1,78 @@
 """BatchProject: classify a manifest of blobs into JSONL rows.
 
-The port's counterpart of `licensee_tpu/projects/batch_project.py`, as
-one synchronous loop: chunk the manifest, produce each chunk (read +
-dedupe + prefilter + featurize, `serve/featurize.py`), coalesce the
-device rows of consecutive chunks into full device batches, score them
-(`kernels/batch.py`), finish, and write the rows in manifest order.  A
-content-hash cache carries results across chunks, so a verbatim repeat
-of an earlier blob skips featurization and the device.  The rows are
-byte-identical to the JAX package's for the same manifest.
+The port's counterpart of `licensee_tpu/projects/batch_project.py`, one
+device, license mode: manifest -> read + featurize worker threads (or
+spawned worker processes, ``featurize_procs``) -> coalescing of the
+device rows of consecutive batches into full device chunks -> up to
+``pipeline_depth`` groups in flight on the card (`dispatch_chunks_async`,
+`kernels/batch.py`) -> finish -> a writer thread that writes the rows in
+manifest order.  The native featurizer drops the GIL for a whole batch,
+so the threads featurize in parallel; the card scores group N while the
+workers featurize the next ones and the writer drains the one before.
+Groups are awaited strictly FIFO and the writer checks their sequence
+numbers, so the output is byte-identical at every setting and the line
+count is always the completed prefix of the manifest: a run cut at any
+point resumes from there (``resume``, with the ``<output>.meta.json``
+sidecar that refuses a resume under another configuration).  A
+content-hash cache carries results across batches, so a verbatim repeat
+of an earlier blob skips featurization and the device.  The rows and
+the sidecar are byte-identical to the JAX package's, so either package
+resumes the other's partial output.
 
-What waits for later slices (ROADMAP A): the worker-thread and
-worker-process produce stages, the async device pipeline, resume and its
-sidecar, stripes and multi-host runs, containers, closest, attribution
-and the readme/package/auto modes.
+What waits for later slices (ROADMAP A): stripes and multi-host runs,
+several devices (lanes), containers, progress lines, the obs registry,
+closest, attribution and the readme/package/auto modes.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import queue
+import threading
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import licensee_tpu_torch
 from licensee_tpu_torch.kernels.batch import BatchClassifier
+from licensee_tpu_torch.obs.pipeline import PipelineLanes
 from licensee_tpu_torch.serve.featurize import jsonl_row, produce_batch
 
-__all__ = ["BatchProject", "BatchStats"]
+__all__ = ["BatchProject", "BatchStats", "ResumeConfigError"]
 
 # entries the cross-batch dedupe cache holds before it drops its oldest
 DEDUPE_CAP = 1 << 20
-# produced chunks coalesced into one device batch at most (fewer when
-# their device rows fill a batch first)
-COALESCE_BATCHES = 32
+
+
+class ResumeConfigError(ValueError):
+    """A resume whose row-shaping configuration (mode, corpus, threshold,
+    closest, attribution) differs from the run that wrote the output."""
+
+
+# -- process-pool featurization (featurize_procs) --
+#
+# Worker PROCESSES featurize instead of threads where the GIL holds the
+# threads back (the pure-Python pipeline).  Each builds a host-only
+# classifier (device=None: no device tensors, no CUDA context, nothing
+# to dispatch) from the parent's pickled corpus; batches come back as
+# plain numpy and dataclasses.  The cross-batch dedupe cache stays in
+# the parent and is applied on receipt.  The parent holds a live CUDA
+# context, so the pool spawns its workers, never forks them.
+
+_MP_STATE: dict = {}
+
+
+def _mp_init(corpus, mode, batch_size):
+    _MP_STATE["clf"] = BatchClassifier(
+        corpus=corpus, mode=mode, pad_batch_to=batch_size, device=None
+    )
+
+
+def _mp_produce(chunk, mode, dedupe):
+    return (chunk, *produce_batch(_MP_STATE["clf"], chunk, mode, dedupe))
 
 
 @dataclass
@@ -48,13 +90,23 @@ class BatchStats:
     skipped_oversized: int = 0
     # rows scored on the device (the Dice-bound rows)
     device_rows: int = 0
+    # per-stage wall-clock seconds: read and featurize add up over the
+    # worker threads, so they can exceed elapsed
     stage_seconds: dict = field(default_factory=dict)
+    # the run's lane occupancy (obs/pipeline.py PipelineLanes.occupancy)
+    pipeline: dict = field(default_factory=dict)
+    # the classifier's set-up against steady-state dispatch split
+    # (BatchClassifier.dispatch_stats)
+    dispatch: dict = field(default_factory=dict)
 
     def add_stage(self, stage: str, seconds: float) -> None:
         self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + seconds
 
     def as_dict(self) -> dict:
         d = dict(self.__dict__)
+        for key in ("pipeline", "dispatch"):
+            if not d[key]:
+                del d[key]
         d["stage_seconds"] = {
             k: round(v, 4) for k, v in self.stage_seconds.items()
         }
@@ -72,8 +124,14 @@ class BatchProject:
         method: str = "auto",
         batch_size: int = 4096,
         threshold: float | None = None,
+        workers: int | None = None,
+        inflight: int = 3,
         mode: str = "license",
         dedupe: bool = True,
+        featurize_procs: int = 0,
+        coalesce_batches: int = 32,
+        corpus_source: str | None = None,
+        pipeline_depth: int = 2,
         device="cuda",
     ):
         self.paths = list(manifest_paths)
@@ -90,9 +148,41 @@ class BatchProject:
             if threshold is None
             else threshold
         )
+        self.workers = workers or min(32, (os.cpu_count() or 1))
+        # produced batches in flight on the workers at once
+        self.inflight = max(1, inflight)
+        # cross-batch device coalescing: how many produced batches may
+        # wait while their sparse device rows accumulate toward a full
+        # device chunk; 1 disables it
+        if coalesce_batches < 1:
+            raise ValueError(
+                f"coalesce_batches must be >= 1, got {coalesce_batches!r}"
+            )
+        self.coalesce_batches = int(coalesce_batches)
+        # dispatched device groups in flight at once: 1 is the
+        # synchronous dispatch/await/write loop, >= 2 the overlap
+        # pipeline; the output is identical at every depth
+        if pipeline_depth < 1:
+            raise ValueError(
+                f"pipeline_depth must be >= 1, got {pipeline_depth!r}"
+            )
+        self.pipeline_depth = int(pipeline_depth)
+        if not (featurize_procs is None or featurize_procs >= 0):
+            raise ValueError(
+                f"featurize_procs must be >= 0, got {featurize_procs!r}"
+            )
+        self.featurize_procs = int(featurize_procs or 0)
         self.mode = self.classifier.mode
+        # Content dedupe: real license corpora are dominated by verbatim
+        # copies of a few hundred texts, and a verdict is a function of
+        # the content and the HTML gate alone, so a hit is exact.  FIFO-
+        # bounded; the workers only read it (GIL-atomic dict ops), the
+        # writer thread alone inserts.
         self.dedupe = dedupe
         self._dedupe_cache: dict = {}
+        # the --corpus value, recorded in the resume sidecar so a corpus
+        # refusal can name the corpus that wrote the output
+        self.corpus_source = corpus_source
         self.stats = BatchStats()
 
     @classmethod
@@ -102,63 +192,351 @@ class BatchProject:
             paths = [line.strip() for line in f if line.strip()]
         return cls(paths, **kwargs)
 
-    def run(self, output: str) -> BatchStats:
+    @staticmethod
+    def _resume_point(output: str) -> int:
+        """Count completed records, discarding a torn tail.
+
+        A crash mid-write can leave a final line without its newline;
+        only newline-terminated lines count as done, and the file is
+        truncated back to the last complete record so the resumed run
+        rewrites the torn row instead of leaving it corrupt."""
+        done = 0
+        good_end = 0
+        with open(output, "rb") as f:
+            for line in f:
+                if not line.endswith(b"\n"):
+                    break
+                done += 1
+                good_end += len(line)
+        if good_end < os.path.getsize(output):
+            with open(output, "r+b") as f:
+                f.truncate(good_end)
+        return done
+
+    def _produce(self, start: int):
+        """Worker-thread stage: read + dedupe + prefilter + featurize,
+        with the live cross-batch dedupe cache."""
+        chunk = self.paths[start : start + self.batch_size]
+        return (chunk, *produce_batch(
+            self.classifier, chunk, self.mode, self.dedupe,
+            cache=self._dedupe_cache if self.dedupe else None,
+        ))
+
+    def _run_config(self) -> dict:
+        """Everything that changes the CONTENT of an output row, in the
+        JAX package's keys and order: written beside the output as
+        ``<output>.meta.json`` so a resumed run can prove it appends rows
+        of the same shape, whichever package wrote the earlier ones."""
+        corpus = self.classifier.corpus
+        corpus_id = {
+            "templates": corpus.n_templates,
+            "vocab": len(corpus.vocab),
+            "keys_sha1": hashlib.sha1(
+                "\n".join(corpus.keys).encode(), usedforsecurity=False
+            ).hexdigest(),
+            # the templates' normalized-content hashes: an edited template
+            # with unchanged keys and vocab size refuses to resume
+            "content_sha1": hashlib.sha1(
+                "\n".join(
+                    sorted(
+                        f"{key}:{h}" for h, key in corpus.content_hashes.items()
+                    )
+                ).encode(),
+                usedforsecurity=False,
+            ).hexdigest(),
+        }
+        return {
+            "mode": self.mode,
+            "corpus": corpus_id,
+            "threshold": self.threshold,
+            # closest and attribution wait for a later slice
+            "closest": 0,
+            "attribution": False,
+            # the container-expansion fingerprint: containers wait for a
+            # later slice, so a loose manifest's None
+            "ingest": None,
+            # descriptive only (never compared): names the corpus in
+            # refusal messages
+            "corpus_source": self.corpus_source,
+        }
+
+    def _check_resume_config(self, output: str, resume: bool) -> dict:
+        """Refuse a resume whose configuration would produce different
+        rows.
+
+        Returns the config; the caller writes it to the sidecar AFTER the
+        output file is opened, so a crash never leaves a fresh sidecar
+        beside stale rows (at worst an emptied output sits beside the
+        previous sidecar, which then refuses in the safe direction)."""
+        meta_path = f"{output}.meta.json"
+        config = self._run_config()
+        if resume and os.path.exists(output) and os.path.exists(meta_path):
+            with open(meta_path, encoding="utf-8") as f:
+                try:
+                    prior = json.load(f)
+                except json.JSONDecodeError:
+                    prior = None  # torn sidecar: rewritten by this run
+            if prior is not None:
+                # key by key over this version's fields: a sidecar with
+                # extra keys refuses nothing whose tracked settings match
+                diffs = [
+                    k
+                    for k in config
+                    if k != "corpus_source" and prior.get(k) != config[k]
+                ]
+                if diffs:
+                    detail = ""
+                    if "corpus" in diffs:
+                        prior_c = prior.get("corpus") or {}
+                        cur_c = config.get("corpus") or {}
+                        prior_src = prior.get("corpus_source")
+                        detail = (
+                            "; corpus fingerprint mismatch: the output "
+                            f"was written with corpus "
+                            f"{prior_src or 'unknown source'} "
+                            f"(content_sha1 "
+                            f"{prior_c.get('content_sha1')}, "
+                            f"{prior_c.get('templates')} templates), "
+                            f"this run uses "
+                            f"{self.corpus_source or 'unknown source'} "
+                            f"(content_sha1 {cur_c.get('content_sha1')}, "
+                            f"{cur_c.get('templates')} templates)"
+                        )
+                    raise ResumeConfigError(
+                        f"cannot resume {output!r}: this run's "
+                        "configuration differs from the one that wrote "
+                        f"it ({', '.join(diffs)} changed — {meta_path})"
+                        f"{detail}; rerun with matching settings, a "
+                        "fresh --output, or --no-resume"
+                    )
+        return config
+
+    def run(self, output: str, resume: bool = True) -> BatchStats:
+        run_config = self._check_resume_config(output, resume)
+        done = 0
+        if resume and os.path.exists(output):
+            done = self._resume_point(output)
+        mode = "a" if done else "w"
+
+        starts = deque(range(done, len(self.paths), self.batch_size))
         t_run = time.perf_counter()
-        gather: list = []
-        gather_todo = 0
-        with open(output, "w", encoding="utf-8") as out:
-            for start in range(0, len(self.paths), self.batch_size):
-                chunk = self.paths[start : start + self.batch_size]
+        # featurize (produce workers), device (submit -> await) and
+        # writer occupancy, and the in-flight chunks
+        lanes = PipelineLanes()
+        use_procs = self.featurize_procs > 0
+        if use_procs:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+
+            pool = ProcessPoolExecutor(
+                max_workers=self.featurize_procs,
+                mp_context=multiprocessing.get_context("spawn"),
+                initializer=_mp_init,
+                initargs=(self.classifier.corpus, self.mode, self.batch_size),
+            )
+        else:
+            pool = ThreadPoolExecutor(max_workers=self.workers)
+        with pool, open(output, mode, encoding="utf-8") as out:
+            # the sidecar AFTER the output's open/truncate: see
+            # _check_resume_config
+            with open(f"{output}.meta.json", "w", encoding="utf-8") as f:
+                json.dump(run_config, f)
+                f.write("\n")
+            futures: deque = deque()
+
+            def produce_timed(start: int):
+                # the featurize lane is busy while >= 1 worker is inside
+                with lanes.lane("featurize"):
+                    return self._produce(start)
+
+            def submit_next() -> None:
+                if not starts:
+                    return
+                start = starts.popleft()
+                if use_procs:
+                    # the lane clock cannot reach into the children, so
+                    # featurize occupancy reads 0 under featurize_procs
+                    # (stage_seconds still carries their seconds)
+                    futures.append(pool.submit(
+                        _mp_produce,
+                        self.paths[start : start + self.batch_size],
+                        self.mode,
+                        self.dedupe,
+                    ))
+                else:
+                    futures.append(pool.submit(produce_timed, start))
+
+            for _ in range(self.inflight):
+                submit_next()
+
+            # gather: produced batches whose (possibly sparse) device rows
+            # coalesce into full device chunks.  pending: dispatched
+            # groups in flight, at most pipeline_depth, awaited strictly
+            # FIFO with their batches in arrival order, so the rows are
+            # written in manifest order at every depth.
+            pending: deque = deque()
+            gather: list = []
+            gather_todo = 0
+
+            def dispatch_gathered() -> None:
+                nonlocal gather_todo
+                if not gather:
+                    return
+                batches = list(gather)
+                gather.clear()
+                gather_todo = 0
                 t0 = time.perf_counter()
-                produced = produce_batch(
-                    self.classifier, chunk, self.mode, self.dedupe,
-                    cache=self._dedupe_cache if self.dedupe else None,
-                )
-                self.stats.add_stage("produce", time.perf_counter() - t0)
-                prepared = produced[-1]
-                if len(prepared.todo) < len(prepared.results):
-                    # free the dense feature arrays while the batch
-                    # waits in the coalescing buffer
-                    prepared.compact_features()
-                gather.append((chunk, *produced))
-                gather_todo += len(prepared.todo)
-                if (
-                    gather_todo >= self.classifier.pad_batch_to
-                    or len(gather) >= COALESCE_BATCHES
-                ):
-                    self._score_and_write(gather, out)
-                    gather, gather_todo = [], 0
-            self._score_and_write(gather, out)
+                prepareds = [b[5] for b in batches]
+                merged = device_fut = None
+                if any(p.todo for p in prepareds):
+                    # non-blocking submit: the future resolves in the
+                    # FIFO await below, never here
+                    merged = self.classifier.merge_prepared(prepareds)
+                    device_fut = self.classifier.dispatch_chunks_async(merged)
+                    lanes.enter("device")
+                    lanes.chunk_inflight(len(device_fut))
+                    self.stats.device_rows += len(merged.todo)
+                self.stats.add_stage("dispatch", time.perf_counter() - t0)
+                pending.append((batches, merged, device_fut))
+
+            # -- the writer thread --
+            #
+            # Dup resolution, stats, dedupe-cache fills, row rendering and
+            # the JSONL write run here, off the main thread, behind a
+            # bounded queue.  Batches arrive tagged with sequence numbers
+            # that must be contiguous, so rows land in manifest order (the
+            # resume invariant).  The writer is the only mutator of the
+            # result counters and the only inserter into the dedupe cache;
+            # a fill still in the queue merely costs a duplicate score with
+            # an identical result.
+            write_q: queue.Queue = queue.Queue(maxsize=8)
+            writer_err: list[BaseException] = []
+            next_seq = 0
+
+            def write_loop() -> None:
+                expect_seq = 0
+                while True:
+                    item = write_q.get()
+                    if item is None:
+                        return
+                    if writer_err:
+                        continue  # drain: the producer must never block
+                    lanes.enter("writer")
+                    try:
+                        seq, batch = item
+                        if seq != expect_seq:
+                            raise RuntimeError(
+                                f"writer sequence gap: got {seq}, "
+                                f"expected {expect_seq} — manifest order "
+                                "(the resume invariant) would break"
+                            )
+                        expect_seq += 1
+                        t1 = time.perf_counter()
+                        self._write_batch(batch, out)
+                        self.stats.add_stage("write", time.perf_counter() - t1)
+                    except BaseException as exc:  # noqa: BLE001 — raised below
+                        writer_err.append(exc)
+                    finally:
+                        lanes.exit_("writer")
+
+            writer = threading.Thread(
+                target=write_loop, name="batch-writer", daemon=True
+            )
+            writer.start()
+
+            try:
+                while futures or pending or gather:
+                    if writer_err:
+                        break  # the writer's failure is raised below
+                    # pull produced batches into the coalescing buffer;
+                    # keep up to pipeline_depth dispatched groups in
+                    # flight before draining the oldest
+                    while futures and len(pending) < self.pipeline_depth:
+                        (chunk, read_errs, keys, preset, dup_of, prepared,
+                         pre_rows, (t_read, t_feat)) = (
+                            futures.popleft().result()
+                        )
+                        submit_next()
+                        self.stats.add_stage("read", t_read)
+                        self.stats.add_stage("featurize", t_feat)
+                        if self.dedupe:
+                            # re-probe the cross-batch cache: rows produced
+                            # during the pipeline's lag (and, in process
+                            # mode, every row) pick up results finished
+                            # since their produce
+                            cache = self._dedupe_cache
+                            hit = False
+                            for i, k in enumerate(keys):
+                                if k is not None and preset[i] is None:
+                                    cached = cache.get(k)
+                                    if cached is not None:
+                                        preset[i] = cached
+                                        prepared.results[i] = cached
+                                        hit = True
+                            if hit:
+                                prepared.todo = [
+                                    i
+                                    for i, r in enumerate(prepared.results)
+                                    if r is None
+                                ]
+                        if len(prepared.todo) < len(prepared.results):
+                            # free the dense feature arrays while the
+                            # batch waits in the buffer
+                            prepared.compact_features()
+                        gather.append((chunk, read_errs, keys, preset,
+                                       dup_of, prepared, pre_rows))
+                        gather_todo += len(prepared.todo)
+                        if (
+                            gather_todo >= self.classifier.pad_batch_to
+                            or len(gather) >= self.coalesce_batches
+                            or gather_todo == 0
+                        ):
+                            # a group with no device rows finishes at
+                            # once: holding it back only delays its writes
+                            dispatch_gathered()
+
+                    if not pending:
+                        # the stream's tail, or an under-filled group with
+                        # nothing else in flight
+                        dispatch_gathered()
+                    # await the OLDEST group: by now the card has had the
+                    # featurize interval to finish it
+                    batches, merged, device_fut = pending.popleft()
+                    t0 = time.perf_counter()
+                    if merged is not None:
+                        outs = device_fut.result()
+                        lanes.exit_("device")
+                        lanes.chunk_inflight(-len(device_fut))
+                        self.classifier.finish_chunks(
+                            merged, outs, self.threshold
+                        )
+                        self.classifier.scatter_merged(
+                            [b[5] for b in batches], merged
+                        )
+                    self.stats.add_stage("score", time.perf_counter() - t0)
+                    for b in batches:
+                        write_q.put((next_seq, b))
+                        next_seq += 1
+            finally:
+                write_q.put(None)
+                writer.join()
+            if writer_err:
+                raise writer_err[0]
+        self.stats.pipeline = lanes.occupancy()
+        self.stats.dispatch = self.classifier.dispatch_stats()
         self.stats.add_stage("elapsed", time.perf_counter() - t_run)
         return self.stats
 
-    def _score_and_write(self, gather: list, out) -> None:
-        """Score a group of produced batches as one merged device batch,
-        then write their rows in manifest order."""
-        if not gather:
-            return
-        prepareds = [b[-1] for b in gather]
-        t0 = time.perf_counter()
-        merged = self.classifier.merge_prepared(prepareds)
-        if merged.todo:
-            outs = self.classifier.dispatch_chunks(merged)
-            self.classifier.finish_chunks(merged, outs, self.threshold)
-            self.classifier.scatter_merged(prepareds, merged)
-        self.stats.device_rows += len(merged.todo)
-        self.stats.add_stage("score", time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        for batch in gather:
-            self._write_batch(batch, out)
-        out.flush()
-        self.stats.add_stage("write", time.perf_counter() - t0)
-
     def _write_batch(self, batch, out) -> None:
-        chunk, read_errs, keys, preset, dup_of, prepared = batch
+        """Resolve one finished batch's duplicates, count it, fill the
+        dedupe cache and write its rows (the writer thread's body)."""
+        chunk, read_errs, keys, preset, dup_of, prepared, pre_rows = batch
         results = prepared.results
         for i, j in dup_of.items():
             results[i] = results[j]
         stats = self.stats
         cache = self._dedupe_cache
+        read_errors = featurize_errors = dedupe_hits = skipped_oversized = 0
         lines = []
         for k, (path, read_err, result) in enumerate(
             zip(chunk, read_errs, results)
@@ -167,24 +545,32 @@ class BatchProject:
             if read_err:
                 error = read_err
                 if read_err == "oversized":
-                    stats.skipped_oversized += 1
+                    skipped_oversized += 1
                 else:
-                    stats.read_errors += 1
+                    read_errors += 1
             elif result.error:
                 error = result.error
-                stats.featurize_errors += 1
+                featurize_errors += 1
             else:
                 self._count(result)
                 if preset[k] is not None:
-                    stats.dedupe_hits += 1
+                    dedupe_hits += 1
                 elif self.dedupe and keys[k] is not None:
                     if len(cache) >= DEDUPE_CAP:
                         cache.pop(next(iter(cache)))  # FIFO bound
                     cache[keys[k]] = result
-            lines.append(jsonl_row(path, result, error))
+            if pre_rows is not None and pre_rows[k] is not None:
+                lines.append(pre_rows[k])
+            else:
+                lines.append(jsonl_row(path, result, error))
         lines.append("")
         out.write("\n".join(lines))
+        out.flush()
         stats.total += len(chunk)
+        stats.read_errors += read_errors
+        stats.featurize_errors += featurize_errors
+        stats.dedupe_hits += dedupe_hits
+        stats.skipped_oversized += skipped_oversized
 
     def _count(self, result) -> None:
         if result.matcher == "copyright":

@@ -2,10 +2,11 @@
 
 The port's counterpart of `licensee_tpu/serve/featurize.py`, license
 mode: the capped read policy, the dispatch/content cache key, the batch
-produce core (read + dedupe + prefilter + featurize) and the JSONL row
-renderer, so the port writes rows byte-identical to the JAX package's.
-The single-request twin the online micro-batcher calls waits for the
-`serve` slice (ROADMAP A).
+produce core (read + dedupe + prefilter + featurize, with its read hook
+and stage seconds) and the JSONL row renderer, so the port writes rows
+byte-identical to the JAX package's.  The single-request twin the
+online micro-batcher calls, container reads, attribution and auto
+routing wait for later slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import functools
 import hashlib
 import json
 import os
+import time
 
 from licensee_tpu_torch.ingest import OVERSIZED, SkippedBlob
 from licensee_tpu_torch.kernels.batch import BatchClassifier, BlobResult
@@ -79,22 +81,38 @@ def content_key(route: str, filename: str | None, content: bytes):
     )
 
 
-def produce_batch(classifier, chunk, mode, dedupe, cache=None):
-    """The produce stage: read + dedupe + prefilter + featurize one chunk
-    of manifest paths.
+def _read_loose(path: str, _i: int):
+    return read_capped(path)
 
-    Returns ``(read_errs, keys, preset, dup_of, prepared)``: the per-row
-    read disposition (None, ``"read_error"`` or the skip reason), the
-    dedupe keys, the rows answered from ``cache`` or marked as in-batch
-    duplicates, the duplicate -> original row map, and the prepared
-    batch."""
+
+def produce_batch(classifier, chunk, mode, dedupe, cache=None, read=None):
+    """The produce stage: read + dedupe + prefilter + featurize one chunk
+    of manifest paths, shared by the thread path (live ``cache``) and the
+    worker-process path (``cache=None``: the cross-batch cache lives in
+    the parent, which applies it on receipt).
+
+    ``read(path, i)`` loads one blob by display path and in-chunk index;
+    the default reads loose files with :func:`read_capped`.  A read may
+    answer bytes, None (a ``read_error`` row) or a :class:`SkippedBlob`
+    (a row carrying its skip reason, e.g. ``oversized``).
+
+    Returns ``(read_errs, keys, preset, dup_of, prepared, pre_rows,
+    (read_s, featurize_s))``: the per-row read disposition (None,
+    ``"read_error"`` or the skip reason), the dedupe keys, the rows
+    answered from ``cache`` or marked as in-batch duplicates, the
+    duplicate -> original row map, the prepared batch, the JSONL lines
+    already final here (cache hits; None where there are none) and the
+    stage's seconds."""
     if mode != "license":
         raise NotImplementedError(
             f"mode {mode!r} waits for a later slice of the port "
             "(ROADMAP A, readme/package/auto modes)"
         )
+    if read is None:
+        read = _read_loose
     filenames = [os.path.basename(p) for p in chunk]
-    contents = [read_capped(p) for p in chunk]
+    t0 = time.perf_counter()
+    contents = [read(p, i) for i, p in enumerate(chunk)]
     read_errs: list = [None] * len(chunk)
     for i, c in enumerate(contents):
         if c is None:
@@ -102,6 +120,7 @@ def produce_batch(classifier, chunk, mode, dedupe, cache=None):
         elif isinstance(c, SkippedBlob):
             read_errs[i] = c.error
             contents[i] = None
+    t1 = time.perf_counter()
     keys: list = [None] * len(chunk)
     preset: list = [None] * len(chunk)
     dup_of: dict[int, int] = {}
@@ -125,4 +144,18 @@ def produce_batch(classifier, chunk, mode, dedupe, cache=None):
         filenames=filenames,
         preset=preset,
     )
-    return read_errs, keys, preset, dup_of, prepared
+    # render the rows already final here (cache hits) on the parallel
+    # produce worker instead of the writer's serial section: a preset
+    # row is never a read error and never an error result (the cache
+    # holds clean rows only), so the line is what the writer would emit
+    pre_rows: list | None = None
+    for i, p in enumerate(preset):
+        if p is not None and p is not IN_BATCH_DUP:
+            if pre_rows is None:
+                pre_rows = [None] * len(chunk)
+            pre_rows[i] = jsonl_row(chunk[i], p, None)
+    t2 = time.perf_counter()
+    return (
+        read_errs, keys, preset, dup_of, prepared, pre_rows,
+        (t1 - t0, t2 - t1),
+    )

@@ -115,7 +115,8 @@ def assert_k1_matches_plain(args):
     planes = dice_cuda.score_pairs_fused(*args)
     for a, b in zip(planes, dice_cuda.score_pairs_fused_plain(*args)):
         assert torch.equal(a, b)
-    assert not dice_cuda._TICKETS[args[0].device.index].any()
+    # every launch leaves its stream's tickets zero
+    assert not dice_cuda._tickets(args[0].device, 1).any()
     return got
 
 
@@ -251,3 +252,119 @@ def test_batch_detect_on_the_card_matches_cpu(card, tmp_path):
             outs.append(out.read_bytes())
         assert dice_cuda.LAUNCHES[kernel] > 0
         assert outs[0] == outs[1]
+
+
+# -- the asynchronous dispatch: pinned staging, one stream, the future ----
+
+
+def dispatchable(clf, n, seed):
+    """A prepared batch of ``n`` Dice-bound rows of seeded features."""
+    from licensee_tpu_torch.kernels.batch import PreparedBatch
+
+    rng = np.random.default_rng(seed)
+    W = clf.corpus.n_lanes
+    return PreparedBatch(
+        results=[None] * n,
+        bits=rng.integers(0, 2**32, (n, W), dtype=np.uint32),
+        n_words=rng.integers(0, 3000, n).astype(np.int32),
+        lengths=rng.integers(0, 60000, n).astype(np.int32),
+        cc_fp=rng.random(n) < 0.2,
+        todo=list(range(n)),
+    )
+
+
+@pytest.fixture()
+def launch_streams(monkeypatch):
+    """The raw stream every kernel launch went to, meanwhile."""
+    seen = []
+    launch = dice_cuda._launch
+
+    def recorded(dev, entry, *args):
+        seen.append(torch._C._cuda_getCurrentRawStream(dev.index))
+        return launch(dev, entry, *args)
+
+    monkeypatch.setattr(dice_cuda, "_launch", recorded)
+    return seen
+
+
+@pytest.mark.parametrize("method", ["pallas", "pallas-mxu"])
+def test_groups_in_flight_match_sync_and_plain(card, launch_streams, method):
+    """Six groups of two chunks in flight at once, awaited in order: the
+    same (idx, num, den) as the synchronous dispatch and the plain
+    scorer on the CPU, every launch on the device's dispatch stream."""
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+
+    clf = BatchClassifier(method=method, pad_batch_to=1000, device="cuda")
+    cpu = BatchClassifier(method=method, pad_batch_to=1000, device="cpu")
+    batches = [dispatchable(clf, 1500 + 37 * k, k) for k in range(6)]
+    futures = [clf.dispatch_chunks_async(p) for p in batches]
+    for fut, p in zip(futures, batches):
+        got = fut.result()
+        for out_got, out_sync, out_cpu in zip(
+                got, clf.dispatch_chunks(p), cpu.dispatch_chunks(p)):
+            assert out_got[0] == out_sync[0] == out_cpu[0]
+            for a, b, c in zip(out_got[1], out_sync[1], out_cpu[1]):
+                np.testing.assert_array_equal(a, b)
+                np.testing.assert_array_equal(a, c)
+    stream = dice_cuda.dispatch_stream(card.index or 0).cuda_stream
+    assert launch_streams and set(launch_streams) == {stream}
+    assert stream != torch.cuda.current_stream().cuda_stream
+
+
+def test_pinned_slot_released_only_after_its_event(card, monkeypatch):
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+
+    clf = BatchClassifier(pad_batch_to=512, device="cuda")
+    pending = {}
+    release = clf._staging.release
+
+    def checked(slot):
+        assert pending.pop(id(slot)).query(), "slot freed before its event"
+        release(slot)
+
+    monkeypatch.setattr(clf._staging, "release", checked)
+    futures = []
+    for k in range(8):
+        fut = clf.dispatch_chunks_async(dispatchable(clf, 1100, k))
+        for _chunk, slot, done in fut._parts:
+            assert all(t.is_pinned() for t in slot.tensors)
+            assert id(slot) not in pending, "a slot in flight was refilled"
+            pending[id(slot)] = done
+        futures.append(fut)
+        if len(futures) > 2:
+            futures.pop(0).result()
+    for fut in futures:
+        fut.result()
+    assert not pending
+
+
+def test_dispatch_stats_one_setup_per_shape(card):
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+
+    clf = BatchClassifier(pad_batch_to=256, device="cuda")
+    for k in range(3):
+        clf.dispatch_chunks(dispatchable(clf, 600, k))  # 3 chunks each
+    stats = clf.dispatch_stats()
+    assert stats["compiles"] == 1 and stats["dispatches"] == 8
+    assert stats["shapes"] == [256]
+    assert stats["per_shape"][256]["compiles"] == 1
+
+
+def test_pipeline_on_the_card_matches_cpu_at_every_depth(card, tmp_path,
+                                                         launch_streams):
+    import chip_smoke
+
+    manifest = chip_smoke.write_manifest(np, str(tmp_path / "rows"), 3,
+                                         n_files=600)
+    outs = {}
+    for device, depth, workers in (("cpu", 1, 1), ("cuda", 1, 1),
+                                   ("cuda", 2, 8), ("cuda", 4, 3)):
+        out = tmp_path / f"{device}.{depth}.jsonl"
+        assert port_main(["batch-detect", manifest, "--output", str(out),
+                          "--device", device, "--batch-size", "64",
+                          "--coalesce-batches", "2",
+                          "--pipeline-depth", str(depth),
+                          "--workers", str(workers)]) == 0
+        outs[device, depth] = out.read_bytes()
+    assert len(set(outs.values())) == 1
+    assert len(set(launch_streams)) == 1 and len(launch_streams) > 3

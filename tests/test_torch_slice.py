@@ -156,7 +156,9 @@ def test_auto_resolves_by_template_count():
 
 
 def test_port_imports_no_jax_yaml_or_jax_package():
-    """Every module of the port, and chip_smoke.py, in a fresh process."""
+    """Every module of the port, and chip_smoke.py, in a fresh process,
+    with the port's native pipeline and scanners loaded: no JAX, no
+    PyYAML, nothing of `licensee_tpu`, and no library built inside it."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import licensee_tpu_torch\n"
@@ -164,12 +166,23 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "licensee_tpu_torch.__path__, 'licensee_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
+        "from licensee_tpu_torch.native import pipeline, textops\n"
+        "from licensee_tpu_torch.kernels.batch import BatchClassifier\n"
+        "assert pipeline.load() and textops.load()\n"
+        "assert BatchClassifier(device=None)._nat is pipeline.load()\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert '/licensee_tpu/native/' not in maps, 'a JAX-side library'\n"
+        "assert '/build/licensee_tpu_torch/native/_pipeline.so' in maps\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'yaml', 'licensee_tpu'))\n"
         "new = {'licensee_tpu_torch.corpus.spdx', "
-        "'licensee_tpu_torch.corpus.spdx_synth'}\n"
+        "'licensee_tpu_torch.corpus.spdx_synth', "
+        "'licensee_tpu_torch.native.build', "
+        "'licensee_tpu_torch.native.pipeline', "
+        "'licensee_tpu_torch.native.textops', "
+        "'licensee_tpu_torch.obs.pipeline'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
-        "sys.exit(1 if bad or len(names) < 22 or new - set(names) else 0)\n"
+        "sys.exit(1 if bad or len(names) < 28 or new - set(names) else 0)\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
