@@ -6,7 +6,7 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), its torch name,
    the device count, its SM count and maximum SM clock;
-2. build: both kernel sources of `licensee_tpu_torch/csrc/` compiled by
+2. build: the three kernel sources of `licensee_tpu_torch/csrc/` compiled by
    nvcc for sm_90a, with ptxas's register/shared-memory report, and,
    meanwhile, the native featurizer (`native/pipeline.cpp`,
    `native/textops.cpp`) by g++ against libpcre2; the run fails if the
@@ -28,8 +28,14 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    Dice-bound chunks) and on a case of exact ties across the kernel's
    template splits and all-excluded rows.  Then the whole score step per
    4096-row batch, the argmax included, at both widths (K1 fused against
-   K2 plus the score algebra and the argmax in PyTorch): the times
-   `resolve_method`'s crossover rests on;
+   K2 plus the score algebra and the argmax in PyTorch, and K1's planes
+   plus the top-k of the --closest path): the times `resolve_method`'s
+   crossover rests on.  K4's top-k (`topk_exact`, csrc/dice_topk.cu) is
+   held bit for bit against its plain version on K1's planes at the four
+   shapes above with k = 4 (--closest 3) and k = T, and on the ties case,
+   whose all-excluded rows must give template 0 at (-1, 1) in every
+   round; each is timed beside its bound (the planes' bytes, or k rounds
+   of exact compares);
 4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
    (the vendored templates rendered with field values, the test
    fixtures, and seeded word-level mutations of both), once through K1
@@ -56,16 +62,32 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    and the sidecar must not change.  A last run under torch.profiler
    gives the card's busy and idle share.
    Every run prints rows/s, its stage seconds, the pipeline lanes'
-   occupancy and the dispatch set-up split.
+   occupancy and the dispatch set-up split;
+6. modes: the rest of `batch-detect`'s verdict surface at default flags
+   over a seeded ~10,000-row mixed manifest laid out as crawls list
+   repositories (LICENSE-likes, READMEs in markdown and HTML, package
+   manifests, an unrouted source file per repo): --mode auto --closest 3
+   --attribution, --mode readme and --mode package, each byte-identical
+   to --device cpu and to --pipeline-depth 1 --workers 1, with the auto
+   run's resume drill and torch.profiler runs of auto and readme; then
+   --closest 3 over the T=608 manifest through K1 (`score_pairs_fused`
+   then `topk_exact`) and K2 (--method matmul) against --device cpu,
+   and a `corpus-build` artifact of the SPDX directory through --corpus
+   ART, byte-identical to --corpus DIR.  A --closest run fails if it
+   launched `best_match_fused`, ran the argmax on the card or never
+   launched `topk_exact`.
 
 A row's ``launches`` counts its kernel over its width's card runs of
-phases 4 and 5, each run between a reset of the counts and a read; the
-planes kernel is on no main path and shows 0.
+phases 4 to 6, each run between a reset of the counts and a read; the
+planes kernel (`score_pairs_fused`) launches on the --closest runs.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
-non-zero before those lines are printed.  Imports nothing of JAX or of
-the JAX package.
+non-zero before those lines are printed.  Before it exits, whatever the
+outcome, the script ends and reaps every process it started that is
+still there (`stop_children`: multiprocessing's resource tracker, which
+--featurize-procs' pool leaves running, and any orphan it adopted).
+Imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
@@ -102,6 +124,14 @@ B1_PAIR_WORDS_PER_CLK_SM = 1024
 # den's select) 10, and for the first-max the exact compare (two int64
 # products, a compare, the update) 4 more
 K1_PAIR_OPS = {"planes": 10, "best": 14}
+# the top-k's integer operations per exact compare (two int64 products, a
+# compare, the update), as in K1's first-max.  The bound counts the
+# compares the function needs, not the kernel's k rounds over T: a
+# tournament over a row takes T - 1 compares for its winner and
+# ceil(log2 T) more for each later one (`topk_compares`)
+TOPK_COMPARE_OPS = 4
+# the --closest path's k at the CLI's --closest 3 (k = closest + 1)
+CLOSEST = 3
 
 MAIN_B = 4096  # batch-detect's default --batch-size: the main path's chunk
 SPDX_T = 608   # the synthetic SPDX directory's template count (W=132)
@@ -133,6 +163,77 @@ FIELD_VALUES = {
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# -- processes: nothing the script starts outlives it --------------------------
+
+PR_SET_CHILD_SUBREAPER = 36  # <linux/prctl.h>
+
+
+def adopt_orphans() -> None:
+    """Make this process the reaper of its descendants whose parent ends
+    first (Linux prctl), so that `stop_children` finds them as children."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) != 0:
+        print(f"chip_smoke: prctl(PR_SET_CHILD_SUBREAPER) failed: "
+              f"{os.strerror(ctypes.get_errno())}", file=sys.stderr)
+
+
+def children() -> dict[int, str]:
+    """{pid: command line} of every process whose parent is this one,
+    exited ones not yet reaped included."""
+    me, found = os.getpid(), {}
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat", encoding="utf-8",
+                      errors="replace") as fh:
+                stat = fh.read()
+            with open(f"/proc/{name}/cmdline", "rb") as fh:
+                cmd = fh.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            continue
+        # the fields after the command name in parentheses: state, ppid
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            found[int(name)] = cmd.strip() or stat.split(" ", 2)[1]
+    return found
+
+
+def stop_children(grace_s: float = 30.0) -> None:
+    """End and reap every process the script started that is still there.
+
+    --featurize-procs' spawned pool leaves multiprocessing's resource
+    tracker running beside this process until the interpreter's end; it
+    ignores SIGTERM and ends when its pipe closes, so it is stopped that
+    way and waited for.  Any other child gets SIGTERM, then SIGKILL after
+    ``grace_s``; each one stopped is named on stderr."""
+    import signal
+    from multiprocessing import resource_tracker
+
+    tracker = resource_tracker._resource_tracker
+    if getattr(tracker, "_pid", None) is not None:
+        print(f"chip_smoke: stopping multiprocessing's resource tracker "
+              f"(pid {tracker._pid})", file=sys.stderr)
+        os.close(tracker._fd)
+        os.waitpid(tracker._pid, 0)
+        tracker._fd = tracker._pid = None
+    deadline = time.monotonic() + grace_s
+    named = set()
+    while left := children():
+        sig = signal.SIGTERM if time.monotonic() < deadline else signal.SIGKILL
+        for pid, cmd in left.items():
+            if pid not in named:
+                named.add(pid)
+                print(f"chip_smoke: stopping pid {pid}: {cmd[:200]}",
+                      file=sys.stderr)
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+            with contextlib.suppress(ChildProcessError):
+                os.waitpid(pid, os.WNOHANG)
+        time.sleep(0.05)
 
 
 # -- phase 1: device ---------------------------------------------------------
@@ -455,6 +556,79 @@ def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
         raise AssertionError("ties: an all-excluded row is not (0, -1, 1)")
     rows += k1_rows(torch, label, B, T, W, run, args, sm_clocks_per_s,
                     epilogues=("best",))
+    rows += topk_rows(np, torch, rng, args, sm_clocks_per_s)
+    return rows
+
+
+def topk_row(torch, label, num, den, k, run, sm_clocks_per_s) -> dict:
+    """`topk_exact` on one pair of planes: held bit for bit against its
+    plain version (`dice_ref.topk_candidates`) and timed beside its
+    bound: the planes' bytes against the exact compares a tournament
+    needs to select k of T (`topk_compares`)."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    B, T = num.shape
+
+    def fn():
+        return dice_cuda.topk_exact(num, den, k)
+
+    def plain():
+        return dice_cuda.topk_exact_plain(num, den, k)
+
+    err = held_against_plain(torch, f"topk_exact {label} k={k}", fn, plain)
+    n_bytes = 2 * B * T * 4 + 3 * B * k * 4
+    compares = topk_compares(T, k)
+    ops = B * compares * TOPK_COMPARE_OPS
+    return kernel_row(
+        torch, f"topk_exact@{label},k{k}", "dice_topk.cu",
+        "licensee_tpu/kernels/dice_xla.py:248", B, T, None, run, err, fn,
+        plain, None, n_bytes,
+        ops / (INT_OPS_PER_CLK_SM * sm_clocks_per_s) * 1e3,
+        f"{ops} integer ops ({B} rows x {compares} compares to select "
+        f"{k} of {T} x {TOPK_COMPARE_OPS})", out_bytes=3 * B * k * 4,
+        shape={"B": B, "T": T, "k": k},
+    )
+
+
+def topk_compares(T: int, k: int) -> int:
+    """The exact compares that selecting the top k of T entries needs: a
+    tournament's T - 1 for the winner, then ceil(log2 T) to replay each
+    later winner's path.  Fewer than the kernel's k rounds of T, and at
+    k = T fewer than a sort's network."""
+    return (T - 1) + (k - 1) * max(1, (T - 1).bit_length())
+
+
+def topk_rows(np, torch, rng, ties_args, sm_clocks_per_s) -> list[dict]:
+    """K4's top-k on K1's planes at the main paths' shapes and at
+    B=262144, with k = closest + 1 (the --closest 3 path) and k = T,
+    then on the ties case, whose all-excluded rows (every fourth) must
+    return template 0 at (-1, 1) in every round: the repeat-index case
+    of k rounds of a masked first-max."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    rows = []
+    for label, B, T, W, run in SHAPES:
+        ct, feats = random_case(np, torch, rng, B, T, W)
+        num, den = dice_cuda.score_pairs_fused(
+            dice_cuda.pack_meta(ct), ct.bits, *feats)
+        del ct, feats
+        shape = "main" if label == "main" else label
+        for k in (CLOSEST + 1, T):
+            rows.append(topk_row(torch, shape, num, den, k, run,
+                                 sm_clocks_per_s))
+        del num, den
+        torch.cuda.empty_cache()
+    label, B, T, W, run = TIES_SHAPE
+    num, den = dice_cuda.score_pairs_fused(*ties_args)
+    cf = ties_args[5]
+    for k in (CLOSEST + 1, T):
+        idx, knum, kden = dice_cuda.topk_exact(num, den, k)
+        if not ((idx[cf] == 0).all() and (knum[cf] == -1).all()
+                and (kden[cf] == 1).all()):
+            raise AssertionError(f"topk ties k={k}: an all-excluded row is "
+                                 "not (0, -1, 1) in every round")
+        rows.append(topk_row(torch, label, num, den, k, run,
+                             sm_clocks_per_s))
     return rows
 
 
@@ -472,16 +646,24 @@ def time_scorers(torch, label, ct, meta, tpl_i8, feats) -> None:
         return dice_ref.argmax_exact(
             *dice_ref.finish_scores(ct, overlap, *feats[1:]))
 
+    def k1_topk():
+        return dice_cuda.topk_exact(*dice_cuda.score_pairs_fused(
+            meta, ct.bits, *feats), CLOSEST + 1)
+
     held_against_plain(torch, f"scorers {label}", k1, k2)
+    held_against_plain(torch, f"scorers {label} top-1 of top-k",
+                       lambda: [t[:, 0] for t in k1_topk()], k1)
     B, T = feats[0].shape[0], ct.n_templates
-    for method, fn in (("K1 fused", k1), ("K2+algebra+argmax", k2)):
+    for method, fn in (("K1 fused", k1), ("K2+algebra+argmax", k2),
+                       (f"K1 planes + top-k (k={CLOSEST + 1})", k1_topk)):
         log(f"scorer {method} @{label}: B={B} T={T} "
             f"ms={cuda_time_ms(torch, fn):.4f} "
             f"device_ms={graph_time_ms(torch, fn, 2 * B * T * 4):.4f}")
 
 
 def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
-               library, n_bytes, ops_ms, ops_how, out_bytes) -> dict:
+               library, n_bytes, ops_ms, ops_how, out_bytes,
+               shape=None) -> dict:
     ms = cuda_time_ms(torch, fn)
     device_ms = graph_time_ms(torch, fn, out_bytes)
     plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5)
@@ -504,14 +686,15 @@ def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
         "library_ms": library_ms,
         "device_ms": device_ms,
         "library_device_ms": library_device_ms,
-        "shape": {"B": B, "T": T, "W": W},
+        "shape": shape or {"B": B, "T": T, "W": W},
         "slice_run": run,
     }
 
     def fmt(x):
         return "null" if x is None else f"{x:.4f}"
 
-    log(f"kernel {name}: B={B} T={T} W={W} max_abs_err={err} "
+    dims = " ".join(f"{k}={v}" for k, v in row["shape"].items())
+    log(f"kernel {name}: {dims} max_abs_err={err} "
         f"kernel_ms={ms:.4f} device_ms={device_ms:.4f} "
         f"plain_ms={plain_ms:.4f} library_ms={fmt(library_ms)} "
         f"library_device_ms={fmt(library_device_ms)} "
@@ -614,6 +797,137 @@ def write_spdx_manifest(np, root: str, spdx_dir: str, seed: int,
     return write_rows(np, root, bases, seed, n_files)
 
 
+# declared licenses of the generated package manifests: SPDX ids, the
+# spellings each ecosystem's tools accept, and values no template has
+DECLARED = ("MIT", "mit", "Apache-2.0", "GPL-3.0", "GPL-2.0", "LGPL-3.0",
+            "BSD-3-Clause", "BSD-2-Clause", "ISC", "MPL-2.0", "Unlicense",
+            "AGPL-3.0", "UNLICENSED", "Proprietary", "MIT OR Apache-2.0")
+CRAN_DECLARED = ("GPL-3", "GPL-2", "MIT + file LICENSE", "GPL (>= 2)",
+                 "LGPL-3", "BSD_3_clause + file LICENSE")
+CABAL_DECLARED = ("BSD3", "BSD2", "GPL-3", "LGPL-3", "MIT", "AGPL-3")
+
+
+def package_files(rng, i: int) -> list:
+    """(name, text) of the package manifests of crawl repo ``i``: a
+    seeded subset of package.json, a gemspec, Cargo.toml, an R
+    DESCRIPTION and a cabal file, each declaring a license (or, now and
+    then, none)."""
+    def lic(pool):
+        return pool[int(rng.integers(len(pool)))]
+
+    files = []
+    if rng.random() < 0.6:
+        field = (f'  "license": "{lic(DECLARED)}",\n'
+                 if rng.random() < 0.9 else "")
+        files.append(("package.json", f'{{\n  "name": "pkg{i}",\n{field}'
+                      f'  "version": "1.{i % 7}.0"\n}}\n'))
+    if rng.random() < 0.25:
+        decl = (f's.license = "{lic(DECLARED).lower()}"'
+                if rng.random() < 0.7 else
+                f's.licenses = ["{lic(DECLARED).lower()}", "mit"]')
+        files.append((f"gem{i}.gemspec", "Gem::Specification.new do |s|\n"
+                      f'  s.name = "gem{i}"\n  {decl}\nend\n'))
+    if rng.random() < 0.25:
+        files.append(("Cargo.toml", f'[package]\nname = "crate{i}"\n'
+                      f'license = "{lic(DECLARED)}"\n'))
+    if rng.random() < 0.15:
+        files.append(("DESCRIPTION", f"Package: r{i}\nLicense: "
+                      f"{lic(CRAN_DECLARED)}\n"))
+    if rng.random() < 0.15:
+        files.append((f"pkg{i}.cabal", f"name: pkg{i}\nlicense: "
+                      f"{lic(CABAL_DECLARED)}\n"))
+    return files
+
+
+def readme_file(rng, i: int, bases, readmes, names) -> tuple:
+    """(name, text) of crawl repo ``i``'s README: a test fixture's README,
+    or a generated one whose License section names a license (the
+    Reference matcher's case), holds a rendered template or a seeded
+    mutation of one, points elsewhere, or is missing; now and then as
+    HTML."""
+    r = rng.random()
+    if r < 0.15:
+        return readmes[int(rng.integers(len(readmes)))]
+    if r < 0.35:
+        section = (f"This project is released under the "
+                   f"{names[int(rng.integers(len(names)))]}.")
+    elif r < 0.55:
+        section = bases[int(rng.integers(len(bases)))][1]
+    elif r < 0.7:
+        section = mutate(bases[int(rng.integers(len(bases)))][1], rng, 0.03)
+    elif r < 0.85:
+        section = "See [LICENSE](LICENSE) for details."
+    else:
+        section = None
+    if rng.random() < 0.12:
+        body = f"<h1>repo{i}</h1>\n<p>A project.</p>\n"
+        if section is not None:
+            paras = "".join(f"<p>{p}</p>\n" for p in section.split("\n\n"))
+            body += f"<h2>License</h2>\n{paras}"
+        return "README.html", body
+    text = f"# repo{i}\n\nA project.\n\n## Usage\n\nRun it.\n"
+    if section is not None:
+        text += f"\n## License\n\n{section}\n"
+    return "README.md", text
+
+
+def write_mixed_manifest(np, root: str, seed: int, n_repos: int = 2400) -> str:
+    """A mixed manifest laid out as crawls list repositories: per repo
+    directory a LICENSE-like file (a rendered template or test fixture,
+    or a seeded mutation; COPYING, COPYRIGHT and LICENSE-MIT names
+    among them), a README, package manifests and an unrouted source
+    file, and one path that cannot be read: about 4 rows a repo."""
+    from licensee_tpu_torch.corpus.license import License
+
+    rng = np.random.default_rng(seed + 2)
+    bases = vendored_bases()
+    # what a README's License section names a license by: its title or
+    # its source URL (the Reference matcher's two patterns)
+    lics = License.all(hidden=True, pseudo=False)
+    names = [lic.name for lic in lics] + [
+        lic.meta.source for lic in lics if lic.meta.source]
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "tests", "fixtures")
+    readmes = []
+    for rel in ("readme/README.md", "mit/README.md",
+                "license-with-readme-reference/README",
+                "apache-with-readme-notice/README.md",
+                "readme-invalid-encoding/README.md"):
+        with open(os.path.join(fixtures, rel), "rb") as fh:
+            readmes.append((os.path.basename(rel),
+                            fh.read().decode("utf-8", errors="ignore")))
+    license_names = ("LICENSE", "LICENSE", "LICENSE.txt", "LICENSE.md",
+                     "COPYING", "LICENSE-MIT", "COPYRIGHT")
+    rates = (0.002, 0.01, 0.03, 0.1, 0.3)
+    paths = []
+    for i in range(n_repos):
+        repo = os.path.join(root, f"r{i // 100:02d}", f"repo{i:04d}")
+        files = []
+        if rng.random() < 0.85:
+            name = license_names[int(rng.integers(len(license_names)))]
+            text = bases[int(rng.integers(len(bases)))][1]
+            if name == "COPYRIGHT" and rng.random() < 0.5:
+                text = f"Copyright (c) {2000 + i % 24} Repo {i} Authors\n"
+            elif rng.random() < 0.3:
+                text = mutate(text, rng, rates[int(rng.integers(len(rates)))])
+            files.append((name, text))
+        if rng.random() < 0.9:
+            files.append(readme_file(rng, i, bases, readmes, names))
+        files += package_files(rng, i)
+        files.append(("main.c", "int main(void) { return 0; }\n"))
+        for name, text in files:
+            path = os.path.join(repo, name)
+            os.makedirs(repo, exist_ok=True)
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(text)
+            paths.append(path)
+    paths.append(os.path.join(root, "missing", "LICENSE"))  # unreadable
+    manifest = os.path.join(root, "manifest.txt")
+    with open(manifest, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(paths) + "\n")
+    return manifest
+
+
 def write_rows(np, root: str, bases, seed: int, n_files: int) -> str:
     """``n_files`` manifest rows under ``root``: the (name, text) bases
     (as many as fit), seeded word-level mutations of them, and one path
@@ -712,8 +1026,10 @@ def describe(stats: dict, elapsed: float) -> str:
 
 def drive(torch, what: str, argv: list[str], n_rows: int):
     """One `batch-detect` run through the CLI, with the kernels' launch
-    counts reset just before it and read just after.  A K1 run (every
-    run but --method pallas-mxu) fails if it ran the planes kernel or the
+    counts reset just before it and read just after.  A --closest run
+    fails if it launched `best_match_fused`, ran the argmax on the card
+    or never launched `topk_exact`; another K1 run (neither
+    --method pallas-mxu nor matmul) if it ran the planes kernel or the
     argmax on the card.  Returns (output bytes, stats, seconds,
     launches)."""
     from licensee_tpu_torch.kernels import dice_cuda
@@ -727,7 +1043,15 @@ def drive(torch, what: str, argv: list[str], n_rows: int):
         stats = run_cli([*argv, "--stats"])
     elapsed = time.perf_counter() - t0
     launches = dict(dice_cuda.LAUNCHES) if on_card else {}
-    if on_card and "pallas-mxu" not in argv and (
+    closest = "--closest" in argv and argv[argv.index("--closest") + 1] != "0"
+    if on_card and closest and (card_argmax[0] or launches["best_match_fused"]
+                                or not launches["topk_exact"]):
+        raise AssertionError(
+            f"{what}: the --closest path launched best_match_fused "
+            f"({launches['best_match_fused']}) or argmax_exact on the card "
+            f"({card_argmax[0]}), or never topk_exact")
+    k2 = "pallas-mxu" in argv or "matmul" in argv
+    if on_card and not closest and not k2 and (
             card_argmax[0] or launches["score_pairs_fused"]):
         raise AssertionError(
             f"{what}: the K1 path ran the planes kernel or argmax_exact on "
@@ -855,36 +1179,22 @@ def default_flags(torch, what: str, root: str, manifest: str,
     if one(f"procs{procs}", "--featurize-procs", procs)[1] != full:
         raise AssertionError(f"{what}: the --featurize-procs JSONL differs")
     log(f"default flags {what}: --featurize-procs {procs} byte-identical")
-    import hashlib
-
-    with open(out + ".meta.json", "rb") as fh:
-        sidecar = fh.read()
-    cut = int(len(full) * 0.6)
-    while full[cut - 1 : cut] == b"\n":
-        cut += 1
-    with open(out, "wb") as fh:
-        fh.write(full[:cut])
-    kept = full[:cut].count(b"\n")
-    data, stats, _s, got = drive(
-        torch, f"{what} resumed after {kept} rows",
-        ["batch-detect", manifest, "--output", out, *extra], n_rows)
-    with open(out + ".meta.json", "rb") as fh:
-        if fh.read() != sidecar:
-            raise AssertionError(f"{what}: resume rewrote a different sidecar")
-    if hashlib.sha256(data).digest() != hashlib.sha256(full).digest():
-        raise AssertionError(f"{what}: the resumed output's sha256 differs")
-    if stats["total"] != n_rows - kept:
-        raise AssertionError(f"{what}: resume redid {stats['total']} rows, "
-                             f"not {n_rows - kept}")
+    got = resume_drill(torch, what, out,
+                       ["batch-detect", manifest, "--output", out, *extra],
+                       full, n_rows)
     for name, n in got.items():
         launches[run, name] = launches.get((run, name), 0) + n
-    log(f"resume drill {what}: cut mid-line after {kept} rows, resumed: "
-        f"sha256 {hashlib.sha256(data).hexdigest()} equals the full run's, "
-        "sidecar unchanged")
+    busy_share(torch, what, lambda: one("profiled")[1:3], full)
+
+
+def busy_share(torch, what: str, run, full: bytes) -> None:
+    """One more run (``run()`` gives its bytes and stats) under
+    torch.profiler: it must give ``full`` again, and the card's busy
+    seconds over the run's elapsed are its busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _out, data, stats, _got = one("profiled")
+        data, stats = run()
     torch.cuda.synchronize()
     if data != full:
         raise AssertionError(f"{what}: the profiled run's JSONL differs")
@@ -899,7 +1209,7 @@ def default_flags(torch, what: str, root: str, manifest: str,
 
 
 def phase_slice(np, torch, seed: int) -> dict:
-    """Phases 4 and 5; returns {(run, kernel): launches}."""
+    """Phases 4 to 6; returns {(run, kernel): launches}."""
     from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
@@ -925,7 +1235,135 @@ def phase_slice(np, torch, seed: int) -> dict:
                       "vendored", drill=True)
         default_flags(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
                       launches, "spdx", drill=False)
+        modes(np, torch, seed, root, spdx, spdx_dir, launches)
     return launches
+
+
+def resume_drill(torch, what: str, out: str, argv: list[str], full: bytes,
+                 n_rows: int) -> dict:
+    """Cut ``out`` mid-line, resume the run and check it ends at the full
+    run's sha256 with the sidecar unchanged; returns the launches."""
+    import hashlib
+
+    with open(out + ".meta.json", "rb") as fh:
+        sidecar = fh.read()
+    cut = int(len(full) * 0.6)
+    while full[cut - 1 : cut] == b"\n":
+        cut += 1
+    with open(out, "wb") as fh:
+        fh.write(full[:cut])
+    kept = full[:cut].count(b"\n")
+    data, stats, _s, got = drive(
+        torch, f"{what} resumed after {kept} rows", argv, n_rows)
+    with open(out + ".meta.json", "rb") as fh:
+        if fh.read() != sidecar:
+            raise AssertionError(f"{what}: resume rewrote a different sidecar")
+    if hashlib.sha256(data).digest() != hashlib.sha256(full).digest():
+        raise AssertionError(f"{what}: the resumed output's sha256 differs")
+    if stats["total"] != n_rows - kept:
+        raise AssertionError(f"{what}: resume redid {stats['total']} rows, "
+                             f"not {n_rows - kept}")
+    log(f"resume drill {what}: cut mid-line after {kept} rows, resumed: "
+        f"sha256 {hashlib.sha256(data).hexdigest()} equals the full run's, "
+        "sidecar unchanged")
+    return got
+
+
+def modes(np, torch, seed: int, root: str, spdx: str, spdx_dir: str,
+          launches: dict) -> None:
+    """Phase 6: the rest of batch-detect's verdict surface at default
+    flags.  Over a seeded ~10,000-row mixed crawl manifest:
+    --mode auto --closest 3 --attribution, --mode readme and --mode
+    package, each against --device cpu and --pipeline-depth 1
+    --workers 1, the auto run's resume drill, and a profiled run of the
+    two that use the card for its busy share.  Over the T=608
+    manifest: --closest 3 through K1 and K2 (--method matmul) against
+    --device cpu, each with a profiled run, and a corpus-build artifact
+    of the SPDX directory through --corpus ART against the K1 run, which
+    read the directory."""
+    t0 = time.perf_counter()
+    mixed = write_mixed_manifest(np, os.path.join(root, "mixed"), seed)
+    n_rows = count_rows(mixed)
+    log(f"modes: {n_rows}-row mixed manifest written in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{smi('name,power.limit')}")
+
+    def one(run, label, manifest, n, *flags):
+        out = os.path.join(root, f"modes.{label}.jsonl")
+        argv = ["batch-detect", manifest, "--output", out, *flags]
+        data, stats, _s, got = drive(torch, f"modes {label}", argv, n)
+        for name, c in got.items():
+            launches[run, name] = launches.get((run, name), 0) + c
+        return out, argv, data, stats, got
+
+    for label, flags, kernel in (
+            ("auto-closest3-attribution",
+             ["--mode", "auto", "--closest", str(CLOSEST), "--attribution"],
+             "topk_exact"),
+            ("readme", ["--mode", "readme"], "best_match_fused"),
+            ("package", ["--mode", "package"], None)):
+        out, argv, full, stats, got = one("vendored", label, mixed, n_rows,
+                                          *flags)
+        if kernel is not None and not got[kernel]:
+            raise AssertionError(f"modes {label}: {kernel} never launched")
+        if kernel is None and any(got.values()):
+            raise AssertionError(f"modes {label}: a host-only run launched "
+                                 f"{got}")
+        for twin, extra in (("cpu", ["--device", "cpu"]),
+                            ("depth1-workers1",
+                             ["--pipeline-depth", "1", "--workers", "1"])):
+            if one("vendored", f"{label}.{twin}", mixed, n_rows, *flags,
+                   *extra)[2] != full:
+                raise AssertionError(f"modes {label}: the {twin} JSONL "
+                                     "differs from the default run's")
+        counters = {k: v for k, v in stats.items()
+                    if isinstance(v, int) or k == "routed"}
+        log(f"modes {label}: byte-identical to --device cpu and to "
+            f"--pipeline-depth 1 --workers 1; counters "
+            f"{json.dumps(counters)}")
+        if label.startswith("auto"):
+            got = resume_drill(torch, f"modes {label}", out, argv, full,
+                               n_rows)
+            for name, c in got.items():
+                launches["vendored", name] = (
+                    launches.get(("vendored", name), 0) + c)
+        if kernel is not None:
+            busy_share(torch, f"modes {label}", lambda: one(
+                "vendored", f"{label}.profiled", mixed, n_rows,
+                *flags)[2:4], full)
+
+    n_spdx = count_rows(spdx)
+    closest = ["--closest", str(CLOSEST), "--corpus"]
+    dir_out = {}
+    for method, kernel in (("auto", "score_pairs_fused"),
+                           ("matmul", "overlap_pairs_mma")):
+        label = f"spdx-closest3-{method}"
+        flags = [*closest, spdx_dir, "--method", method]
+        _o, _a, full, _st, got = one("spdx", label, spdx, n_spdx, *flags)
+        if not got[kernel]:
+            raise AssertionError(f"modes {label}: {kernel} never launched")
+        if one("spdx", f"{label}.cpu", spdx, n_spdx, *flags,
+               "--device", "cpu")[2] != full:
+            raise AssertionError(f"modes {label}: the cpu JSONL differs")
+        log(f"modes {label}: byte-identical to --device cpu")
+        busy_share(torch, f"modes {label}", lambda: one(
+            "spdx", f"{label}.profiled", spdx, n_spdx, *flags)[2:4], full)
+        dir_out[method] = full
+    from licensee_tpu_torch.cli.main import main as cli
+
+    art = os.path.join(root, "spdx608.npz")
+    manifest_line = io.StringIO()
+    with contextlib.redirect_stdout(manifest_line):
+        if cli(["corpus-build", "--corpus", spdx_dir, "--output", art]) != 0:
+            raise RuntimeError("corpus-build of the SPDX directory failed")
+    log(f"corpus-build: {manifest_line.getvalue().strip()}")
+    # --method auto is the default: the spdx-closest3-auto run is the
+    # --corpus DIR run the artifact's must equal
+    if one("spdx", "spdx-closest3-artifact", spdx, n_spdx, *closest,
+           art)[2] != dir_out["auto"]:
+        raise AssertionError("--corpus ARTIFACT differs from --corpus DIR")
+    log("modes: --corpus ARTIFACT byte-identical to --corpus DIR "
+        "(the spdx-closest3-auto run)")
 
 
 def main() -> int:
@@ -955,4 +1393,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    adopt_orphans()
+    try:
+        code = main()
+    finally:
+        stop_children()
+    sys.exit(code)

@@ -1,21 +1,27 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m licensee_tpu_torch.cli.main batch-detect MANIFEST \\
-        --output OUT.jsonl [--corpus vendored|spdx|DIR] [--method M] \\
-        [--batch-size N] [--confidence N] [--no-dedupe] [--device cuda|cpu] \\
-        [--workers N] [--featurize-procs N] [--coalesce-batches N] \\
-        [--pipeline-depth N] [--no-resume] [--stats]
+        --output OUT.jsonl [--corpus vendored|spdx|DIR|ARTIFACT] \\
+        [--mode license|readme|package|auto] [--closest K] \\
+        [--attribution] [--method M] [--batch-size N] [--confidence N] \\
+        [--no-dedupe] [--device cuda|cpu] [--workers N] \\
+        [--featurize-procs N] [--coalesce-batches N] [--pipeline-depth N] \\
+        [--no-resume] [--stats]
+    python -m licensee_tpu_torch.cli.main corpus-build \\
+        [--corpus SRC] --output ART.npz | --inspect ART.npz
 
-`batch-detect --mode license` classifies a manifest of loose files (one
-path per line) and writes JSONL rows byte-identical to the JAX package's
+`batch-detect` classifies a manifest of loose files (one path per line)
+and writes JSONL rows byte-identical to the JAX package's
 `licensee-tpu batch-detect`, through the same pipeline: featurize worker
 threads (or processes), coalesced device chunks, an overlap pipeline of
 device groups in flight, a writer thread, and resume of a partial
 ``--output`` from its ``.meta.json`` sidecar.  It runs on the CUDA
 device unless ``--device cpu`` asks for the plain PyTorch scorers on the
-CPU.  Printing rows without ``--output``, ``--stripes``, ``--mesh``,
-``--device-lanes``, ``--progress``, containers and the other verbs of
-`licensee_tpu/cli/main.py` wait for later slices (ROADMAP A).
+CPU.  `corpus-build` writes a corpus artifact in the JAX package's
+format (`corpus/artifact.py`).  Printing rows without ``--output``,
+``--stripes``, ``--mesh``, ``--device-lanes``, ``--progress``,
+containers and the other verbs of `licensee_tpu/cli/main.py` wait for
+later slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -31,30 +37,22 @@ from licensee_tpu_torch.kernels.batch import METHODS
 def load_corpus(source: str):
     """The compiled corpus a ``--corpus`` value names, None for the
     default (vendored) pool: ``spdx`` is the vendored SPDX
-    license-list-XML mirror, a directory an SPDX ``src/`` checkout (as
-    `licensee_tpu.corpus.artifact.resolve_corpus` reads them).  Raises
-    ValueError for a source it cannot load, NotImplementedError for a
-    corpus artifact file."""
+    license-list-XML mirror, a directory an SPDX ``src/`` checkout, a
+    file a corpus artifact (`corpus/artifact.py:resolve_corpus`, which
+    checks the artifact against its fingerprint).  Raises ValueError
+    (`ArtifactError`) for a source it cannot load."""
     if source == "vendored":
         return None
-    if source == "spdx" or os.path.isdir(source):
-        from licensee_tpu_torch.corpus.spdx import spdx_corpus
-
-        corpus = spdx_corpus(None if source == "spdx" else source)
-        if not corpus.n_templates:
-            raise ValueError(
-                f"cannot load corpus {source!r}: no license templates found"
-            )
-        return corpus
-    if os.path.isfile(source):
-        raise NotImplementedError(
-            f"corpus artifact {source!r}: artifacts wait for a later slice "
-            "of the port (ROADMAP A, corpus artifacts)"
-        )
-    raise ValueError(
-        f"cannot load corpus {source!r}: not 'vendored', 'spdx' or an "
-        "SPDX license-list-XML src/ directory"
+    from licensee_tpu_torch.corpus.artifact import (
+        ArtifactError,
+        resolve_corpus,
     )
+
+    try:
+        corpus, _fp, _manifest = resolve_corpus(source)
+    except (ArtifactError, OSError) as exc:
+        raise ArtifactError(f"cannot load corpus {source!r}: {exc}") from exc
+    return corpus
 
 
 def cmd_batch_detect(args) -> int:
@@ -80,14 +78,15 @@ def cmd_batch_detect(args) -> int:
             coalesce_batches=args.coalesce_batches,
             corpus_source=args.corpus,
             pipeline_depth=args.pipeline_depth,
+            closest=args.closest,
+            attribution=args.attribution,
             device=args.device,
         )
     except OSError as exc:
         print(f"error: cannot read manifest: {exc}", file=sys.stderr)
         return 1
     except (ValueError, RuntimeError) as exc:
-        # a bad option, no CUDA device without --device cpu, or a
-        # feature that waits for a later slice (NotImplementedError)
+        # a bad option or corpus, or no CUDA device without --device cpu
         print(f"error: {exc}", file=sys.stderr)
         return 1
     from licensee_tpu_torch.projects.batch_project import ResumeConfigError
@@ -104,6 +103,51 @@ def cmd_batch_detect(args) -> int:
         return 1
     if args.stats:
         print(json.dumps(stats.as_dict()), file=sys.stderr)
+    return 0
+
+
+def cmd_corpus_build(args) -> int:
+    """Compile a corpus source into a fingerprinted artifact (the JAX
+    package's format, `corpus/artifact.py`) and print its manifest, or
+    verify and print an artifact's manifest (``--inspect``)."""
+    from licensee_tpu_torch.corpus.artifact import (
+        ArtifactError,
+        load_artifact,
+        resolve_corpus,
+        write_artifact,
+    )
+
+    if args.inspect:
+        try:
+            _corpus, manifest = load_artifact(args.inspect)
+        except ArtifactError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        print(json.dumps(manifest))
+        return 0
+    if not args.output:
+        print(
+            "error: need --output PATH (or --inspect ARTIFACT)",
+            file=sys.stderr,
+        )
+        return 1
+    out_dir = os.path.dirname(os.path.abspath(args.output))
+    if not os.path.isdir(out_dir):
+        problem = (
+            "is not a directory" if os.path.exists(out_dir)
+            else "does not exist"
+        )
+        print(f"error: output directory {problem}: {out_dir}",
+              file=sys.stderr)
+        return 1
+    try:
+        corpus, _fp, _manifest = resolve_corpus(args.corpus)
+    except (ArtifactError, OSError) as exc:
+        print(f"error: cannot load corpus {args.corpus!r}: {exc}",
+              file=sys.stderr)
+        return 1
+    manifest = write_artifact(args.output, corpus, source=args.corpus)
+    print(json.dumps(manifest))
     return 0
 
 
@@ -144,8 +188,9 @@ def build_parser() -> argparse.ArgumentParser:
         "--corpus", default="vendored",
         help=(
             "Template pool: 'vendored' (choosealicense, default), 'spdx' "
-            "(the vendored SPDX license-list XMLs), or a path to an SPDX "
-            "license-list-XML src/ directory (e.g. the full ~600-license set)"
+            "(the vendored SPDX license-list XMLs), a path to an SPDX "
+            "license-list-XML src/ directory (e.g. the full ~600-license "
+            "set), or a corpus artifact written by corpus-build"
         ),
     )
     batch.add_argument(
@@ -158,8 +203,37 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     batch.add_argument(
-        "--mode", default="license", choices=["license"],
-        help="Project-file chain (only 'license' in this slice of the port)",
+        "--mode", default="license",
+        choices=["license", "readme", "package", "auto"],
+        help=(
+            "Which project-file chain to run per blob: 'license' "
+            "(Copyright/Exact/Dice), 'readme' (extract the License "
+            "section, then the license chain + Reference fallback), "
+            "'package' (filename-dispatched package-manifest matchers), "
+            "or 'auto' (route EACH file by its filename through the "
+            "reference's score tables — LICENSE-likes to the license "
+            "chain, READMEs to the readme chain, package manifests to "
+            "their matchers, everything else skipped unread — for "
+            "mixed manifests)"
+        ),
+    )
+    batch.add_argument(
+        "--closest", type=int, default=0, metavar="K",
+        help=(
+            "Attach the top-K closest candidate licenses (key + "
+            "confidence) to rows that reach the Dice scorer, like "
+            "detect's closest-licenses view (prefiltered exact/"
+            "copyright rows skip it)"
+        ),
+    )
+    batch.add_argument(
+        "--attribution", action="store_true",
+        help=(
+            "Extract the copyright/attribution line per matched blob "
+            "(detect's Attribution row, license_file.rb:71-77): a "
+            "post-match host regex, paid only for matched rows — and "
+            "with dedupe, once per unique content"
+        ),
     )
     batch.add_argument("--batch-size", type=int, default=4096)
     batch.add_argument(
@@ -208,6 +282,35 @@ def build_parser() -> argparse.ArgumentParser:
         help="Print the run's counters as one JSON line on stderr",
     )
     batch.set_defaults(func=cmd_batch_detect)
+
+    corpus_build = sub.add_parser(
+        "corpus-build",
+        help="Compile a corpus into a fingerprinted artifact",
+    )
+    corpus_build.add_argument(
+        "--corpus", default="vendored",
+        help=(
+            "Source to compile: 'vendored', 'spdx', an SPDX license-"
+            "list-XML src/ directory, or an existing artifact "
+            "(re-fingerprint/repack)"
+        ),
+    )
+    corpus_build.add_argument(
+        "--output", default=None, metavar="PATH",
+        help=(
+            "Write the artifact bundle here (atomic replace; prints "
+            "the fingerprint manifest on success); batch-detect loads "
+            "it with --corpus PATH"
+        ),
+    )
+    corpus_build.add_argument(
+        "--inspect", default=None, metavar="PATH",
+        help=(
+            "Load an artifact, verify its payload against the "
+            "fingerprint manifest, and print the manifest"
+        ),
+    )
+    corpus_build.set_defaults(func=cmd_corpus_build)
     return parser
 
 

@@ -6,9 +6,9 @@ choosealicense templates plus the `other` / `no-license` pseudo-licenses
 the corpus-wide title regex used by the normalization engine's title strip.
 
 The port's copy of `licensee_tpu/corpus/license.py`, with what the batch
-path needs: the source/reference regexes, fields, predicates, the rules
-table (`rules.yml`) and the hash serialization wait for the `detect`
-slice (ROADMAP A).
+path needs, the Reference matcher's source/reference regexes included:
+the rules table (`rules.yml`), the other predicates and the hash
+serialization wait for the `detect` slice (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -32,6 +32,11 @@ PSEUDO_LICENSES = ("other", "no-license")
 
 # license.rb:95-99
 DEFAULT_OPTIONS = {"hidden": False, "featured": None, "pseudo": True}
+
+# license.rb:101-104: the http(s)/www prefix and the suffixes a source URL
+# may carry in a README
+SOURCE_PREFIX = r"https?://(?:www\.)?"
+SOURCE_SUFFIX = r"(?:\.html?|\.txt|/)(?:\?[^\s]*)?"
 
 _FRONT_MATTER = re.compile(r"\A(---\n.*\n---\n+)?(.*)", re.S)
 
@@ -192,6 +197,36 @@ class License(NormalizedContent):
             parts.append(f"(?:{nick})")
         cached = "|".join(parts)
         self.__dict__["_title_regex_pattern"] = cached
+        return cached
+
+    @property
+    def source_regex_pattern(self) -> str | None:
+        """Pattern matching the license source URL with http(s)/www/suffix
+        variations (license.rb:185-194)."""
+        if not self.meta.source:
+            return None
+        source = re.sub(r"\A" + SOURCE_PREFIX, "", self.meta.source, count=1, flags=re.I)
+        source = re.sub(SOURCE_SUFFIX + r"\Z", "", source, count=1, flags=re.I)
+        return f"(?i:{SOURCE_PREFIX}{regexp_escape(source)}(?:{SOURCE_SUFFIX})?)"
+
+    @property
+    def source_regex(self) -> re.Pattern | None:
+        pattern = self.source_regex_pattern
+        return rb(pattern) if pattern else None
+
+    @property
+    def reference_regex(self) -> re.Pattern:
+        """The compiled title|source union the Reference matcher scans a
+        README section with (reference.rb:9-13), compiled once per
+        License."""
+        cached = self.__dict__.get("_reference_regex")
+        if cached is None:
+            parts = [self.title_regex_pattern]
+            source = self.source_regex_pattern
+            if source:
+                parts.append(source)
+            cached = rb(r"\b(?:" + "|".join(parts) + r")\b")
+            self.__dict__["_reference_regex"] = cached
         return cached
 
     @property

@@ -48,6 +48,18 @@ class LicenseMeta:
         return cls(merged)
 
     @property
+    def source(self):
+        """The canonical source URL is derived from the SPDX id (reference:
+        license_meta.rb:61-63 overrides the YAML `source` field)."""
+        if self.spdx_id:
+            return f"https://spdx.org/licenses/{self.spdx_id}.html"
+        return None
+
+    @source.setter
+    def source(self, value):
+        self._raw_source = value
+
+    @property
     def featured_q(self) -> bool:
         return bool(self.featured)
 

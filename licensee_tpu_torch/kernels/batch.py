@@ -1,13 +1,22 @@
 """Batch classification: host pre-filters + the Dice kernels on the device.
 
-The port's counterpart of `licensee_tpu/kernels/batch.py`, license mode
-on one device.  It mirrors the first-match-wins matcher chain of the
-reference (`project_files/license_file.rb:67-69`: Copyright -> Exact ->
-Dice): the host sanitizes each blob, short-circuits it through the
-Copyright and Exact pre-filters, and featurizes the rest into packed
-bitsets; the device scores every (blob, template) pair with K1 or K2
-(`kernels/dice_cuda.py`) and picks the exact int64 first-max; the host
-finishes the score in float64 and applies the threshold.
+The port's counterpart of `licensee_tpu/kernels/batch.py` on one device.
+It mirrors the first-match-wins matcher chain of the reference
+(`project_files/license_file.rb:67-69`: Copyright -> Exact -> Dice): the
+host sanitizes each blob, short-circuits it through the Copyright and
+Exact pre-filters, and featurizes the rest into packed bitsets; the
+device scores every (blob, template) pair with K1 or K2
+(`kernels/dice_cuda.py`) and picks the exact int64 first-max, or with
+``closest`` the exact top-k (`dice_cuda.topk_exact`); the host finishes
+the score in float64 and applies the threshold.
+
+The modes are the JAX package's: ``license``; ``readme`` (each blob cut
+to its License section first, then the license chain, then the
+Reference matcher as the fallback, its scan in PCRE2 where the native
+library is up); ``package`` (the filename-dispatched package-manifest
+matchers, host only); and ``auto`` (each row routed by its filename
+through the reference's score tables, `route_for`).  `attribution_for`
+gives a matched row's copyright line.
 
 The host featurizes a whole batch in one crossing into the native
 pipeline (`native/pipeline.py`, the GIL dropped), and redoes on the
@@ -17,13 +26,12 @@ text, a PCRE2 resource limit, HTML).  The device half is asynchronous:
 it on the device's one dispatch stream and returns a `DeviceFuture`
 that a CUDA event resolves.
 
-What waits for later slices (ROADMAP A) raises NotImplementedError: the
-readme, package and auto modes, ``closest``, and several devices (lanes
-and meshes).
+Several devices (lanes and meshes) wait for a later slice (ROADMAP A).
 """
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from dataclasses import dataclass
@@ -42,15 +50,23 @@ from licensee_tpu_torch.native import pipeline as native_pipeline
 from licensee_tpu_torch.kernels import dice_cuda
 from licensee_tpu_torch.normalize.pipeline import (
     COPYRIGHT_FULL_REGEX,
+    COPYRIGHT_REGEX,
     NormalizedContent,
 )
 from licensee_tpu_torch.project_files.license_file import (
     CC_FALSE_POSITIVE_REGEX,
+    COPYRIGHT_NAME_REGEX,
+    LicenseFile,
+)
+from licensee_tpu_torch.project_files.package_manager_file import (
+    PackageManagerFile,
 )
 from licensee_tpu_torch.project_files.project_file import sanitize_content
-from licensee_tpu_torch.rubytext import ruby_strip
+from licensee_tpu_torch.project_files.readme_file import ReadmeFile
+from licensee_tpu_torch.rubytext import rb, ruby_strip
 
 METHODS = ("auto",) + dice_cuda.K1_METHODS + dice_cuda.K2_METHODS
+MODES = ("license", "readme", "package", "auto")
 
 # staging slots kept per chunk shape: the pipeline's depth of groups in
 # flight plus the one being filled (`_StagingRing`)
@@ -93,6 +109,72 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+@functools.lru_cache(maxsize=1)
+def _reference_union():
+    """The corpus-wide Reference alternation: every license's
+    title|source pattern as a named group ``g<pool-index>``, compiled
+    once per process (the license pool is process-global and frozen).
+    The patterns hold unnamed inner groups (the optional version
+    minors), so ``m.lastgroup`` is unreliable; a caller finds the
+    matched alternative as the one non-None named group."""
+    from licensee_tpu_torch.corpus.license import License
+
+    lics = tuple(License.all(hidden=True, pseudo=False))
+    parts = []
+    for i, lic in enumerate(lics):
+        inner = [lic.title_regex_pattern]
+        source = lic.source_regex_pattern
+        if source:
+            inner.append(source)
+        parts.append(f"(?P<g{i}>" + "|".join(inner) + ")")
+    return lics, rb(r"\b(?:" + "|".join(parts) + r")\b")
+
+
+@functools.lru_cache(maxsize=1)
+def _refscan_native():
+    """(pipeline, handle) for the PCRE2-compiled Reference union, or None
+    when the native library is unavailable or rejects the pattern."""
+    nat = native_pipeline.load()
+    if nat is None:
+        return None
+    lics, union = _reference_union()
+    # byte-mode PCRE2 (no UTF/UCP) is the faithful translation of rb()'s
+    # re.A (ASCII-only \b and \w over UTF-8, where every non-ASCII byte
+    # is a non-word byte)
+    handle = nat.refscan_new(union)
+    if handle is None:
+        return None
+    # the per-license patterns let the shadow resolution run in one
+    # crossing; if PCRE2 refuses them the Python loop stays in charge
+    nat.refscan_set_singles(handle, [lic.reference_regex for lic in lics])
+    return nat, handle
+
+
+@functools.lru_cache(maxsize=None)
+def _has_fullname(key: str) -> bool:
+    """Does the vendored license's template carry a [fullname] field?
+    Memoized: keys come from a small fixed pool."""
+    from licensee_tpu_torch.corpus.license import License
+
+    lic = License.find(key)
+    return (
+        lic is not None and bool(lic.content) and "[fullname]" in lic.content
+    )
+
+
+def _readme_section(raw, html: bool) -> str | None:
+    """A README's License section as the reference reads it, for
+    `prepare_batch` and `attribution_for` alike: the sanitized blob, an
+    HTML README made markdown BEFORE the header-shaped CONTENT_REGEX
+    scan, then `ReadmeFile.license_content` (None: no such section)."""
+    content = sanitize_content(raw) if raw is not None else ""
+    if html:
+        from licensee_tpu_torch.normalize.html2md import html_to_markdown
+
+        content = html_to_markdown(content)
+    return ReadmeFile.license_content(content)
+
+
 class DeviceFuture:
     """A handle to in-flight device scoring.
 
@@ -101,7 +183,9 @@ class DeviceFuture:
     a CUDA event), so holding a DeviceFuture costs nothing on the host;
     :meth:`result` blocks only until the events complete and returns the
     ``[(chunk, (idx, num, den)), ...]`` outs list that ``finish_chunks``
-    consumes, copied out of the staging slots.  ``ready()`` polls
+    consumes, copied out of the staging slots (with ``closest``, the
+    top-1 then the top-k columns: ``(idx, num, den, k_idx, k_num,
+    k_den)``, as the JAX package's top-k scorer).  ``ready()`` polls
     without blocking.  Resolution releases the staging slots the
     dispatch borrowed, so a slot is never refilled while its copies may
     still be in flight; a future must be awaited (or dropped) for its
@@ -131,7 +215,9 @@ class DeviceFuture:
             for chunk, slot, done in self._parts:
                 if done is not None:
                     done.synchronize()
-                resolved.append((chunk, tuple(slot.result(len(chunk)).copy())))
+                resolved.append(
+                    (chunk, tuple(a.copy() for a in slot.result(len(chunk))))
+                )
             self._resolved = resolved
             for _chunk, slot, _done in self._parts:
                 self._release(slot)
@@ -187,6 +273,12 @@ class BlobResult:
     score_num: int = 0
     score_den: int = 0
     error: str | None = None
+    # the top-k candidates [(key, confidence), ...] when the classifier
+    # runs with closest=K
+    closest: list | None = None
+    # the copyright line, when requested (--attribution) and applicable
+    # (license_file.rb:71-77)
+    attribution: str | None = None
 
 
 @dataclass
@@ -194,8 +286,10 @@ class PreparedBatch:
     """One featurized batch between the host produce stage and the device.
 
     ``results`` carries a BlobResult for every blob short-circuited on the
-    host (prefilters, featurize errors) and None for the ``todo`` rows,
-    whose feature arrays are device-ready."""
+    host (prefilters, package matchers, featurize errors) and None for
+    the ``todo`` rows, whose feature arrays are device-ready.
+    ``sections`` (readme rows only) keeps each blob's extracted license
+    section for the Reference fallback (readme_file.rb:32-34)."""
 
     results: list
     bits: np.ndarray
@@ -203,8 +297,9 @@ class PreparedBatch:
     lengths: np.ndarray
     cc_fp: np.ndarray
     todo: list
+    sections: list | None = None
     # feature arrays hold ONLY the todo rows (row j <-> todo[j]) after
-    # compact_features(); results/todo keep full-batch indexing
+    # compact_features(); results/todo/sections keep full-batch indexing
     compact: bool = False
 
     def compact_features(self) -> None:
@@ -226,10 +321,13 @@ class BatchClassifier:
     Host side: sanitization, Copyright / Exact pre-filters, normalization +
     tokenization into packed bitsets.  Device side: K1 (``popcount``,
     ``pallas``) or K2 (``matmul``, ``pallas-mxu``; ``auto`` picks one by
-    template count, `resolve_method`), then the exact argmax.  Scores
-    come back to the host as exact (overlap, denominator) pairs and are
-    finished in float64 — bit-identical to the scalar Ruby-semantics
-    path.
+    template count, `resolve_method`), then the exact argmax, or with
+    ``closest`` the exact top-k.  Scores come back to the host as exact
+    (overlap, denominator) pairs and are finished in float64 —
+    bit-identical to the scalar Ruby-semantics path.
+
+    ``mode="package"`` is host only: no corpus is compiled (``corpus``
+    is kept as given, None for the default) and nothing is dispatched.
 
     ``device=None`` builds a host-only classifier, the featurize worker
     processes' (``--featurize-procs``): `prepare_batch` works in full,
@@ -246,26 +344,17 @@ class BatchClassifier:
         closest: int = 0,
         device="cuda",
     ):
-        if mode != "license":
-            raise NotImplementedError(
-                f"mode {mode!r} waits for a later slice of the port "
-                "(ROADMAP A, readme/package/auto modes)"
-            )
-        if closest:
-            raise NotImplementedError(
-                "closest waits for a later slice of the port (ROADMAP A, "
-                "closest and attribution)"
-            )
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r}")
+        self.closest = int(closest)
+        if self.closest < 0:
+            raise ValueError("closest must be >= 0")
         if method not in METHODS:
             raise ValueError(f"unknown scoring method: {method!r}")
         if pad_batch_to < 1:
             raise ValueError(f"pad_batch_to must be >= 1, got {pad_batch_to}")
         self.mode = mode
         self.device = None if device is None else resolve_device(device)
-        self.corpus = corpus or default_corpus()
-        if method == "auto":
-            method = resolve_method(self.corpus.n_templates)
-        self.method = method
         self.pad_batch_to = pad_batch_to
         # device dispatch accounting (`dispatch_stats`): the first
         # dispatch of a chunk shape is set-up (the kernel library's load,
@@ -279,10 +368,43 @@ class BatchClassifier:
         self._dispatched_shapes: set = set()
         self._shape_prof: dict[int, dict] = {}
         self.tensors = self._scorer = self._staging = None
+        if mode == "package":
+            # package manifests are matched by the filename-dispatched
+            # lenient regexes alone (package_manager_file.rb): no corpus
+            # is compiled and no scorer built
+            if self.closest:
+                raise ValueError(
+                    "closest needs the Dice scorer; package mode never "
+                    "runs it"
+                )
+            self.corpus = corpus
+            self.method = method
+            self._exact_map = {}
+            self._nat = None
+            self._exact_hashes = {}
+            self._exact_feats = {}
+            return
+        self.corpus = corpus or default_corpus()
+        if method == "auto":
+            method = resolve_method(self.corpus.n_templates)
+        self.method = method
+        if self.closest and method.startswith("pallas"):
+            # as the JAX package refuses it (its Pallas kernels have no
+            # k output columns), whatever the port's kernels could do
+            raise ValueError(
+                "closest is not supported with the pallas methods"
+            )
         if self.device is not None:
+            # top-1 stays exact with or without closest: the top-k's
+            # column 0 is the first-max
+            k = (
+                min(self.closest + 1, self.corpus.n_templates)
+                if self.closest
+                else 0
+            )
             self.tensors = corpus_tensors(self.corpus, self.device)
             self._scorer = dice_cuda.make_best_match_fn(
-                self.tensors, self.method
+                self.tensors, self.method, k
             )
             self._staging = _StagingRing(self._scorer.host_rows, STAGING_DEPTH)
         # Exact matcher pre-filter (matchers/exact.rb:6-13) against the
@@ -325,6 +447,7 @@ class BatchClassifier:
         contents: list[str | bytes],
         filenames: list[str | None] | None = None,
         preset: list | None = None,
+        routes: list | None = None,
     ) -> PreparedBatch:
         """Sanitize, prefilter and featurize a batch of raw blobs.
 
@@ -332,10 +455,22 @@ class BatchClassifier:
         the ``todo`` indexes, whose feature rows are filled and ready for
         the device.  ``filenames`` (parallel to ``contents``) enables
         the HTML->markdown conversion for ``*.html`` files
-        (content_helper.rb:293-299).  ``preset`` pre-assigns result rows
-        (the dedupe cache's hits) so those blobs skip featurization and
-        the device.  A blob whose featurization raises gets an ``error``
-        row and the rest of the batch proceeds."""
+        (content_helper.rb:293-299) and, in package and auto mode, the
+        filename dispatch.  ``preset`` pre-assigns result rows (the
+        dedupe cache's hits) so those blobs skip featurization and the
+        device.  A blob whose featurization raises gets an ``error`` row
+        and the rest of the batch proceeds.
+
+        In readme mode each blob is first cut to its License section
+        (`ReadmeFile.license_content`, after the HTML->markdown step for
+        an HTML README); a blob with no such section matches nothing,
+        and the sections are kept for the Reference fallback.  In auto
+        mode each row runs the chain its filename routes to
+        (`route_for`; ``routes`` passes them precomputed): license rows
+        the license chain, readme rows the readme chain, package rows
+        the matcher table, and names no table scores match nothing."""
+        if self.mode == "package":
+            return self._prepare_package_batch(contents, filenames, preset)
         B = len(contents)
         W = self.corpus.n_lanes
         bits = np.zeros((B, W), dtype=np.uint32)
@@ -345,10 +480,61 @@ class BatchClassifier:
         results: list[BlobResult | None] = (
             list(preset) if preset is not None else [None] * B
         )
+        # per-row HTML gate: cleared for readme rows once the conversion
+        # before the extraction has happened, so no blob converts twice
         html = [
             self._is_html(filenames[i] if filenames else None)
             for i in range(B)
         ]
+        readme_sel: list[bool] | None = None
+        if self.mode == "readme":
+            readme_sel = [True] * B
+        elif self.mode == "auto":
+            if routes is None:
+                routes = [
+                    self.route_for(filenames[i] if filenames else None)
+                    for i in range(B)
+                ]
+            readme_sel = [r == "readme" for r in routes]
+            for i, route in enumerate(routes):
+                if results[i] is not None:
+                    continue
+                if route == "package":
+                    results[i] = self._package_match_one(
+                        contents[i], filenames[i] if filenames else None
+                    )
+                elif route is None:
+                    # no table scores this filename: the reference never
+                    # builds a project file for it (project.rb:111-117)
+                    results[i] = BlobResult(None, None, 0.0)
+        sections: list | None = None
+        if readme_sel is not None and any(readme_sel):
+            sections = [None] * B
+            for i, raw in enumerate(contents):
+                if results[i] is not None or not readme_sel[i]:
+                    continue  # preset (dedupe) rows and other routes
+                try:
+                    section = _readme_section(raw, html[i])
+                    html[i] = False  # the section is markdown from here on
+                except Exception as exc:  # noqa: BLE001 — per-blob containment
+                    results[i] = BlobResult(
+                        None, None, 0.0, error=f"featurize_error: {exc}"
+                    )
+                    continue
+                if section is None:
+                    # no license section: the project never builds a
+                    # ReadmeFile at all (project.rb:76-78)
+                    results[i] = BlobResult(None, None, 0.0)
+                else:
+                    sections[i] = section
+            # readme rows go on with their section (or nothing); license
+            # rows keep their raw content
+            contents = [
+                (sections[i] if sections[i] is not None else "")
+                if readme_sel[i]
+                else contents[i]
+                for i in range(B)
+            ]
         # Whole-batch native fast path: every non-HTML blob goes through
         # ONE ctypes crossing (newline fix + strip + featurize in C++,
         # GIL dropped for the whole batch).  Rows the native side cannot
@@ -439,7 +625,104 @@ class BatchClassifier:
                 lengths[i] = 0
                 cc_fp[i] = False
         todo = [i for i, r in enumerate(results) if r is None]
-        return PreparedBatch(results, bits, n_words, lengths, cc_fp, todo)
+        return PreparedBatch(
+            results, bits, n_words, lengths, cc_fp, todo, sections
+        )
+
+    def _prepare_package_batch(
+        self, contents, filenames, preset=None
+    ) -> PreparedBatch:
+        """Package-manifest mode: the whole chain is host regexes.  Each
+        blob runs the filename-dispatched matcher table of
+        package_manager_file.rb and reports the declared license
+        (``other`` for a declared but unknown value, no match when no
+        matcher claims the filename)."""
+        B = len(contents)
+        results: list[BlobResult | None] = (
+            list(preset) if preset is not None else [None] * B
+        )
+        for i, raw in enumerate(contents):
+            if results[i] is None:
+                results[i] = self._package_match_one(
+                    raw, filenames[i] if filenames else None
+                )
+        zeros = np.zeros(B, dtype=np.int32)
+        return PreparedBatch(
+            results, np.zeros((B, 0), dtype=np.uint32), zeros, zeros,
+            np.zeros(B, dtype=bool), [],
+        )
+
+    @staticmethod
+    def _package_match_one(raw, filename: str | None) -> BlobResult:
+        """One blob through the filename-dispatched package matcher
+        table, with per-blob error containment."""
+        try:
+            matcher = PackageManagerFile(raw, filename).matcher
+            lic = matcher.match if matcher is not None else None
+            if matcher is not None and lic is not None:
+                return BlobResult(
+                    lic.key, matcher.name, float(matcher.confidence)
+                )
+            return BlobResult(None, None, 0.0)
+        except Exception as exc:  # noqa: BLE001 — per-blob containment
+            return BlobResult(
+                None, None, 0.0, error=f"featurize_error: {exc}"
+            )
+
+    def attribution_for(
+        self,
+        raw,
+        filename: str | None,
+        result: BlobResult,
+        route: str | None = None,
+    ) -> str | None:
+        """The copyright line of one matched blob, the batch twin of
+        LicenseFile#attribution (license_file.rb:71-77): applicable when
+        the Copyright matcher fired on a copyright(.ext) file or the
+        matched license's template carries a [fullname] field; the line
+        is the COPYRIGHT_REGEX hit on the stage-1 normalized content.
+        Readme rows scan their License section; package rows have none;
+        a custom corpus's key the vendored pool does not know has no
+        template to prove a [fullname] field with, so None."""
+        if result.key is None or result.error:
+            return None
+        route = route or self.mode
+        if route not in ("license", "readme"):
+            return None
+        applicable = False
+        if result.matcher == "copyright" and filename is not None:
+            applicable = bool(COPYRIGHT_NAME_REGEX.search(filename))
+        if not applicable and not _has_fullname(result.key):
+            return None
+        if route == "readme":
+            html = self._is_html(filename)
+            content = _readme_section(raw, html)
+            if content is None:
+                return None
+            if html:
+                filename = None  # the gate is consumed, as in prepare_batch
+        else:
+            content = sanitize_content(raw) if raw is not None else ""
+        blob = NormalizedBlob(content, filename=filename)
+        m = COPYRIGHT_REGEX.search(blob.content_without_title_and_version)
+        return m.group(0) if m else None
+
+    @staticmethod
+    def route_for(filename: str | None) -> str | None:
+        """The chain ``--mode auto`` runs a file through, by the
+        reference's filename score tables (project.rb:111-117 over
+        LicenseFile.name_score, PackageManagerFile.name_score and
+        ReadmeFile.name_score): the top score wins, ties prefer license >
+        package > readme, and a name no table scores is never read."""
+        if not filename:
+            return None
+        score, route = max(
+            (LicenseFile.name_score(filename), "license"),
+            (PackageManagerFile.name_score(filename), "package"),
+            (ReadmeFile.name_score(filename), "readme"),
+            key=lambda t: t[0],
+        )
+        return route if score > 0 else None
 
     def _prepare_one_python(
         self, raw, results, bits, n_words, lengths, cc_fp, i, html=False,
@@ -524,13 +807,16 @@ class BatchClassifier:
         contents: list[str | bytes],
         threshold: float | None = None,
         filenames: list[str | None] | None = None,
+        routes: list | None = None,
     ) -> list[BlobResult]:
         threshold = (
             licensee_tpu_torch.confidence_threshold()
             if threshold is None
             else threshold
         )
-        prepared = self.prepare_batch(contents, filenames=filenames)
+        prepared = self.prepare_batch(
+            contents, filenames=filenames, routes=routes
+        )
         outs = self.dispatch_chunks(prepared)
         self.finish_chunks(prepared, outs, threshold)
         return prepared.results  # type: ignore[return-value]
@@ -625,11 +911,16 @@ class BatchClassifier:
     def merge_prepared(self, group: list[PreparedBatch]) -> PreparedBatch:
         """Coalesce the ``todo`` rows of several prepared batches into ONE
         device batch (compact, row j <-> merged todo j); `scatter_merged`
-        writes the finished results back."""
+        writes the finished results back.  Readme sections travel with
+        their rows, so `finish_chunks` applies the Reference fallback and
+        the closest trim to the merged batch as it would per batch."""
         if len(group) == 1 and not group[0].compact:
             return group[0]
         parts = [p for p in group if p.todo]
         bits_parts, nw_parts, ln_parts, cc_parts = [], [], [], []
+        sections: list | None = (
+            [] if any(p.sections is not None for p in parts) else None
+        )
         for p in parts:
             n = len(p.todo)
             idx = slice(0, n) if p.compact else np.asarray(p.todo, np.int64)
@@ -637,6 +928,11 @@ class BatchClassifier:
             nw_parts.append(p.n_words[idx])
             ln_parts.append(p.lengths[idx])
             cc_parts.append(p.cc_fp[idx])
+            if sections is not None:
+                sections.extend(
+                    p.sections[i] if p.sections is not None else None
+                    for i in p.todo
+                )
         total = sum(len(p.todo) for p in parts)
         W = self.corpus.n_lanes
 
@@ -650,6 +946,7 @@ class BatchClassifier:
             lengths=cat(ln_parts, np.zeros(0, np.int32)),
             cc_fp=cat(cc_parts, np.zeros(0, bool)),
             todo=list(range(total)),
+            sections=sections,
             compact=True,
         )
 
@@ -669,7 +966,13 @@ class BatchClassifier:
         """Finish scores in float64 on the host — identical to Ruby's
         Float score (dice.rb:57-59) — and apply the threshold.  ``outs``
         may be the resolved list or a :class:`DeviceFuture`, whose await
-        is then the synchronize."""
+        is then the synchronize.
+
+        With ``closest`` each scored row gets its candidate list.  In the
+        readme and auto modes a readme row the Dice pass left unmatched
+        falls through to the Reference matcher (readme_file.rb:32-34): a
+        license named by title or source URL in the section matches at
+        confidence 90, and leaves the candidate list."""
         if isinstance(outs, DeviceFuture):
             outs = outs.result()
         results = prepared.results
@@ -677,6 +980,15 @@ class BatchClassifier:
             best_idx, best_num, best_den = (
                 np.asarray(a)[: len(chunk)] for a in out[:3]
             )
+            k_rows = None
+            if len(out) == 6:  # closest=K: the top-k candidate columns
+                k_idx, k_num, k_den = (
+                    np.asarray(a)[: len(chunk)] for a in out[3:]
+                )
+                k_scores = np.where(
+                    (k_num >= 0) & (k_den > 0), (k_num * 200.0) / k_den, -1.0
+                )
+                k_rows = (k_idx, k_scores)
             scores = np.where(best_den > 0, (best_num * 200.0) / best_den, 0.0)
             for j, i in enumerate(chunk):
                 if best_num[j] >= 0 and scores[j] >= threshold:
@@ -689,3 +1001,105 @@ class BatchClassifier:
                     )
                 else:
                     results[i] = BlobResult(None, None, 0.0)
+                if k_rows is not None:
+                    results[i].closest = self._closest_list(
+                        k_rows[0][j], k_rows[1][j], results[i].key
+                    )
+        if self.mode in ("readme", "auto") and prepared.sections is not None:
+            for i, section in enumerate(prepared.sections):
+                r = results[i]
+                if section is None or r is None or r.key or r.error:
+                    continue
+                lic = self._reference_match(section)
+                if lic is not None:
+                    # the candidate list was built with no matched key;
+                    # now that Reference names one, closest excludes it
+                    # (the list is still untrimmed, so the row keeps K
+                    # entries after the cut below)
+                    kept = r.closest
+                    if kept is not None:
+                        kept = [(kk, c) for kk, c in kept if kk != lic.key]
+                    results[i] = BlobResult(
+                        lic.key, "reference", 90.0, closest=kept
+                    )
+        if self.closest:
+            # trim only the rows this call scored (the fallback rows above
+            # are among them): a preset row from the dedupe cache was
+            # trimmed by the batch that made it, and a finished result is
+            # never mutated again (cached objects alias many rows)
+            for chunk, _ in outs:
+                for i in chunk:
+                    r = results[i]
+                    if r is not None and r.closest is not None:
+                        r.closest = r.closest[: self.closest]
+
+    def _closest_list(self, idx_row, score_row, matched_key):
+        """The top-k candidates as [(key, confidence), ...], sorted by
+        float64 score (Python's stable sort: equal scores keep their
+        exact rank order), without the matched key and the excluded
+        (score < 0) entries.  Untrimmed (up to k entries):
+        `finish_chunks` cuts it to ``closest`` after the readme fallback
+        has had its chance to drop a late-matched key."""
+        rows = [
+            (self.corpus.keys[int(t)], float(s))
+            for t, s in zip(idx_row, score_row)
+            if s >= 0 and self.corpus.keys[int(t)] != matched_key
+        ]
+        rows.sort(key=lambda r: -r[1])
+        return rows
+
+    @staticmethod
+    def _reference_match(section: str):
+        """The Reference matcher over one extracted section
+        (matchers/reference.rb:7-11): the first license IN POOL ORDER
+        whose title/source regex hits anywhere in the section.
+
+        One corpus-wide alternation scans the section (the reference's
+        union trick, content_helper.rb:199-215).  The scan finds hits by
+        position, while the chain is by pool order, and an early license
+        whose only hit lies inside another alternative's span is shadowed
+        in the scan; so the union gives a floor, the least pool index
+        over its hits, and only the licenses below the floor re-run
+        their own regex: the first hit wins, else the floor does.  The
+        scan runs in PCRE2 (`refscan_resolve`, byte mode) where the
+        native library is up; its answer is confirmed with the license's
+        own Python regex, a divergence falls back to the sequential
+        chain, and a PCRE2 resource failure (-2) to the Python scan."""
+        lics, union = _reference_union()
+
+        def exact_chain():
+            for lic in lics:
+                if lic.reference_regex.search(section):
+                    return lic
+            return None
+
+        nat = _refscan_native()
+        if nat is not None:
+            f = nat[0].refscan_resolve(nat[1], section)
+            if f == -1:
+                return None
+            if f >= 0:
+                if lics[f].reference_regex.search(section):
+                    return lics[f]
+                return exact_chain()
+        floor = None
+        for m in union.finditer(section):
+            # one alternative (named group) matches per hit; groupdict
+            # keeps pattern (= pool) order
+            i = next(
+                int(name[1:])
+                for name, val in m.groupdict().items()
+                if val is not None
+            )
+            if floor is None or i < floor:
+                floor = i
+            if floor == 0:
+                break
+        if floor is None:
+            return None
+        if not lics[floor].reference_regex.search(section):
+            return exact_chain()
+        for i in range(floor):
+            if lics[i].reference_regex.search(section):
+                return lics[i]
+        return lics[floor]

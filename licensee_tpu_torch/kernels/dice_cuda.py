@@ -15,6 +15,11 @@ TPU kernels become CUDA C++ in `licensee_tpu_torch/csrc/`:
   spread into wgmma's register operand on chip and contracted against
   the host-unpacked templates (TMA-fed shared memory) on the int8
   tensor cores, giving overlap int32[B, T].
+* K4's top-k `topk_exact` (csrc/dice_topk.cu) replaces the XLA graph
+  `dice_xla.topk_candidates`: k rounds of the exact first-max over the
+  (num, den) planes, each winner masked to (-1, 1), giving (idx, num,
+  den) int32[B, k]; the ``--closest`` path runs it after K1's planes or
+  after K2 and the score algebra.
 
 Each wrapper runs the kernel for CUDA tensors and its plain PyTorch
 version (built on `kernels/dice_ref.py`) for CPU tensors, and counts its
@@ -35,7 +40,7 @@ from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
 # kernel name -> launches since the last reset; a wrapper adds one
 # exactly where it launches its kernel
 LAUNCHES = {"score_pairs_fused": 0, "best_match_fused": 0,
-            "overlap_pairs_mma": 0}
+            "overlap_pairs_mma": 0, "topk_exact": 0}
 
 # meta-table columns of K1 (int32[T, 8], one row per template), as
 # `dice_pallas.pack_corpus` lays them out
@@ -59,6 +64,13 @@ MMA_TILE_T = 16
 MMA_STAGE_WORDS = 4
 MMA_BLOCK_B = 128  # blob rows per block
 MMA_TILE_N = (16, 48, 64, 128, 208)  # the compiled template tiles
+
+# K4's top-k, mirrored from csrc/dice_topk.cu: one warp per blob row,
+# the row's (num, den) in shared memory, 8 bytes a template; a block
+# takes as many rows as fit 48 KB, up to TOPK_MAX_WARPS, and at least one
+# (up to the 227 KB a block can have)
+TOPK_MAX_WARPS = 8
+TOPK_SMEM = 48 * 1024
 
 
 def reset_launches() -> None:
@@ -392,6 +404,53 @@ def overlap_pairs_mma(tpl_unpacked, file_bits, n_templates: int):
     return out
 
 
+# -- K4's top-k --------------------------------------------------------------
+
+
+def topk_exact_plain(num, den, k: int):
+    """K4's top-k in plain PyTorch (`dice_ref.topk_candidates`)."""
+    return dice_ref.topk_candidates(num, den, k)
+
+
+def topk_warps(T: int) -> int:
+    """Rows (warps) per block of the top-k kernel at T templates; raises
+    where one row does not fit a block's shared memory."""
+    if 8 * T > K1_SMEM_CAP:
+        raise ValueError(
+            f"topk_exact holds a row in shared memory: T={T} templates "
+            "is too wide"
+        )
+    return max(1, min(TOPK_MAX_WARPS, TOPK_SMEM // (8 * max(T, 1))))
+
+
+def topk_exact(num, den, k: int):
+    """The exact top-k (idx, num, den) int32[B, k] of each row of the
+    (num, den) int32[B, T] planes (every den >= 1): k rounds of the
+    first-max, each winner masked to (-1, 1); column 0 is the exact
+    top-1.  Takes what `score_pairs_fused` (or K2 and
+    `dice_ref.finish_scores`) gives."""
+    if num.device.type != "cuda":
+        return topk_exact_plain(num, den, k)
+    B, T = num.shape
+    dev = num.device
+    _check(num, "num", torch.int32, (B, T), dev)
+    _check(den, "den", torch.int32, (B, T), dev)
+    k = int(k)
+    if k < 0 or T < 1:
+        raise ValueError(f"topk_exact needs k >= 0 and T >= 1 (k={k}, T={T})")
+    buf = torch.empty((3, B, k), dtype=torch.int32, device=dev)
+    if B == 0 or k == 0:
+        return buf.unbind(0)
+    err = _launch(
+        dev, _lib().dice_topk_exact,
+        num.data_ptr(), den.data_ptr(), buf.data_ptr(), B, T, k,
+        topk_warps(T),
+    )
+    LAUNCHES["topk_exact"] += 1
+    _raise_on(err, "topk_exact")
+    return buf.unbind(0)
+
+
 # -- the scorer the batch path dispatches ------------------------------------
 
 # --method names, kept from the JAX package's CLI; in this port each
@@ -411,26 +470,30 @@ def dispatch_stream(index: int) -> "torch.cuda.Stream":
 
 class HostRows:
     """Host staging rows for one dispatch chunk of up to ``capacity``
-    rows: the four feature columns the scorer reads and the (idx, num,
-    den) it writes back, as tensors and as numpy views of the same
-    memory.  Pinned (page-locked) for a scorer on a card, so the copies
-    both ways run asynchronously on the dispatch stream; the memory must
-    then not be refilled before the chunk's event completes."""
+    rows: the four feature columns the scorer reads and the candidates
+    it writes back, as tensors and as numpy views of the same memory.
+    The candidates are the top-1 (idx, num, den), or with ``k`` > 0 the
+    top-k (idx, num, den) planes of k columns each.  Pinned (page-locked)
+    for a scorer on a card, so the copies both ways run asynchronously
+    on the dispatch stream; the memory must then not be refilled before
+    the chunk's event completes."""
 
-    __slots__ = ("capacity", "tensors", "bits", "n_words", "lengths",
+    __slots__ = ("capacity", "k", "tensors", "bits", "n_words", "lengths",
                  "cc_fp", "out")
 
-    def __init__(self, capacity: int, n_lanes: int, pin: bool):
+    def __init__(self, capacity: int, n_lanes: int, pin: bool, k: int = 0):
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, pin_memory=pin)
 
         self.capacity = capacity
+        self.k = k
         self.tensors = (
             zeros((capacity, n_lanes), torch.int32),
             zeros(capacity, torch.int32),
             zeros(capacity, torch.int32),
             zeros(capacity, torch.bool),
-            zeros(3 * capacity, torch.int32),  # (idx, num, den), 3 x n
+            # (idx, num, den), 3 x n (top-1) or 3 x n x k (top-k)
+            zeros(3 * capacity * max(k, 1), torch.int32),
         )
         fb, nw, ln, cf, out = (t.numpy() for t in self.tensors)
         self.bits = fb.view(np.uint32)
@@ -447,44 +510,65 @@ class HostRows:
         self.cc_fp[:n] = cc_fp
         return n
 
-    def result(self, n: int) -> np.ndarray:
-        """The (idx, num, den) of the first ``n`` rows, int32[3, n] (a
-        view: copy it before the slot is refilled)."""
-        return self.out[: 3 * n].reshape(3, n)
+    def result(self, n: int) -> tuple:
+        """The candidates of the first ``n`` rows, as the JAX package's
+        scorers return them: (idx, num, den) int32[n], and with ``k`` > 0
+        then the top-k (idx, num, den) int32[n, k], whose column 0 is
+        the top-1.  Views: copy them before the slot is refilled."""
+        if not self.k:
+            return tuple(self.out[: 3 * n].reshape(3, n))
+        cols = self.out[: 3 * n * self.k].reshape(3, n, self.k)
+        return (*cols[:, :, 0], *cols)
 
 
 class BestMatchScorer:
     """The scorer the batch path dispatches, closed over the corpus
-    constants on ``ct``'s device: the exact top-1 (idx, num, den) of each
-    staged row.  The K1 methods run the fused first-max
-    (`best_match_fused`, one launch); the K2 methods run K2, then the
-    score algebra and the argmax in PyTorch.
+    constants on ``ct``'s device: for each staged row the exact top-1
+    (idx, num, den), or with ``k`` > 0 the exact top-k candidates
+    (`HostRows.result`).
+
+    Top-1: the K1 methods run the fused first-max (`best_match_fused`,
+    one launch); the K2 methods run K2, then the score algebra and the
+    argmax in PyTorch.  Top-k (``--closest``): the K1 methods run K1's
+    planes (`score_pairs_fused`) and the K2 methods K2 and the score
+    algebra, then `topk_exact`; no argmax runs, since the top-k's column
+    0 is the top-1.
 
     `submit` is the non-blocking half: on a card it enqueues, on the
     device's dispatch stream, the copies of the staged rows to the card,
-    the scoring and the copy of the stacked (idx, num, den) back into
-    the slot, then records and returns a CUDA event; on the CPU the
-    plain versions run at once and it returns None.  Calling the scorer
-    on numpy rows is the synchronous form of the two."""
+    the scoring and the copy of the stacked candidates back into the
+    slot, then records and returns a CUDA event; on the CPU the plain
+    versions run at once and it returns None.  Calling the scorer on
+    numpy rows is the synchronous form of the two."""
 
-    def __init__(self, ct: CorpusTensors, method: str):
+    def __init__(self, ct: CorpusTensors, method: str, k: int = 0):
         self.device = ct.bits.device
         self.n_lanes = ct.bits.shape[1]
+        self.k = int(k)
         if method in K1_METHODS:
             meta = pack_meta(ct)
+
+            def planes(fb, nw, ln, cf):
+                return score_pairs_fused(meta, ct.bits, fb, nw, ln, cf)
 
             def best(fb, nw, ln, cf):
                 return best_match_fused(meta, ct.bits, fb, nw, ln, cf)
         elif method in K2_METHODS:
             tpl = pack_templates_mma(ct)
 
-            def best(fb, nw, ln, cf):
+            def planes(fb, nw, ln, cf):
                 overlap = overlap_pairs_mma(tpl, fb, ct.n_templates)
-                return dice_ref.argmax_exact(
-                    *dice_ref.finish_scores(ct, overlap, nw, ln, cf))
+                return dice_ref.finish_scores(ct, overlap, nw, ln, cf)
+
+            def best(fb, nw, ln, cf):
+                return dice_ref.argmax_exact(*planes(fb, nw, ln, cf))
         else:
             raise ValueError(f"unknown scoring method: {method!r}")
-        self._best = best
+
+        def top_k(fb, nw, ln, cf):
+            return topk_exact(*planes(fb, nw, ln, cf), self.k)
+
+        self._best = top_k if self.k else best
         self.stream = (
             dispatch_stream(self.device.index)
             if self.device.type == "cuda" else None
@@ -492,14 +576,14 @@ class BestMatchScorer:
 
     def host_rows(self, capacity: int) -> HostRows:
         return HostRows(capacity, self.n_lanes,
-                        pin=self.device.type == "cuda")
+                        pin=self.device.type == "cuda", k=self.k)
 
     def submit(self, rows: HostRows, n: int):
         """Score ``rows``' first ``n`` rows into ``rows.out``; returns the
         event that completes when they have landed (None on the CPU,
         where they already have)."""
         fb, nw, ln, cf = (t[:n] for t in rows.tensors[:4])
-        out = rows.tensors[4][: 3 * n]
+        out = rows.tensors[4][: 3 * n * max(self.k, 1)]
         if self.stream is None:
             out.copy_(torch.stack(self._best(fb, nw, ln, cf)).view(-1))
             return None
@@ -515,15 +599,17 @@ class BestMatchScorer:
     def __call__(self, file_bits, n_words, lengths, cc_fp):
         """``fn(file_bits, n_words, lengths, cc_fp)`` on numpy rows
         (uint32[B, W] bits, int32[B] columns, bool[B] flags) returns the
-        exact top-1 (idx, num, den) as numpy int32[B] arrays."""
+        candidates (`HostRows.result`) as numpy int32 arrays."""
         rows = self.host_rows(len(n_words))
         n = rows.fill(file_bits, n_words, lengths, cc_fp)
         done = self.submit(rows, n)
         if done is not None:
             done.synchronize()
-        return tuple(rows.result(n))
+        return rows.result(n)
 
 
-def make_best_match_fn(ct: CorpusTensors, method: str) -> BestMatchScorer:
-    """The scorer for ``method`` (see `BestMatchScorer`)."""
-    return BestMatchScorer(ct, method)
+def make_best_match_fn(ct: CorpusTensors, method: str,
+                       k: int = 0) -> BestMatchScorer:
+    """The scorer for ``method``, top-1 or (``k`` > 0) top-k (see
+    `BestMatchScorer`)."""
+    return BestMatchScorer(ct, method, k)

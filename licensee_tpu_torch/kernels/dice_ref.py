@@ -234,3 +234,30 @@ def best_match(ct: CorpusTensors, file_bits, n_words, lengths, cc_fp,
     """Top-1 (index, overlap, denominator) per blob."""
     num, den = score_pairs(ct, file_bits, n_words, lengths, cc_fp, method)
     return argmax_exact(num, den)
+
+
+def topk_candidates(num: torch.Tensor, den: torch.Tensor, k: int):
+    """Top-k (index, num, den) int32[B, k] columns in exact score order,
+    as `dice_xla.topk_candidates`: k rounds of `argmax_exact`, each
+    round's winner masked to the excluded (-1, 1).  Once a row's
+    remaining entries are all (-1, 1), a later round picks the lowest
+    index among them, which may be a template an earlier round took;
+    those repeats come back as they are (the host drops them by their
+    score, which is below 0)."""
+    B, T = num.shape
+    col = torch.arange(T, dtype=torch.int32, device=num.device)[None, :]
+    k_idx, k_num, k_den = [], [], []
+    n, d = num, den
+    for _ in range(k):
+        idx, nn, dd = argmax_exact(n, d)
+        k_idx.append(idx)
+        k_num.append(nn)
+        k_den.append(dd)
+        won = col == idx[:, None]
+        n = torch.where(won, -1, n)
+        d = torch.where(won, 1, d)
+    empty = torch.empty((B, 0), dtype=torch.int32, device=num.device)
+    return tuple(
+        torch.stack(c, dim=1).to(torch.int32) if c else empty
+        for c in (k_idx, k_num, k_den)
+    )

@@ -17,8 +17,9 @@ Every pattern string is shipped to C++ from the port's own copies
 ``NativePipeline`` or ``None`` (no toolchain, no libpcre2, or
 LICENSEE_TPU_NO_NATIVE set), in which case callers keep the pure-Python
 path.  The library is built from the repo's ``native/`` sources by
-`native/build.py`.  The Reference-matcher scan (``refscan_*``) waits
-for the readme mode, the profile counters for the obs slice.
+`native/build.py`.  The Reference-matcher scan (``refscan_*``) serves
+the readme chain's fallback (`kernels/batch.py:_reference_match`); the
+profile counters wait for the obs slice.
 """
 
 from __future__ import annotations
@@ -395,6 +396,24 @@ class NativePipeline:
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_int32),
             ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int8),
         ]
+        lib.pipe_refscan_new.restype = ctypes.c_void_p
+        lib.pipe_refscan_new.argtypes = [
+            ctypes.c_char_p, ctypes.c_size_t, ctypes.c_char_p,
+        ]
+        lib.pipe_refscan_del.argtypes = [ctypes.c_void_p]
+        lib.pipe_refscan_min.restype = ctypes.c_int
+        lib.pipe_refscan_min.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+        ]
+        lib.pipe_refscan_set_singles.restype = ctypes.c_int
+        lib.pipe_refscan_set_singles.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+            ctypes.c_char_p, ctypes.c_int,
+        ]
+        lib.pipe_refscan_resolve.restype = ctypes.c_int
+        lib.pipe_refscan_resolve.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
+        ]
 
         config = _build_config()
         self._handle = lib.pipe_new(config, len(config))
@@ -589,6 +608,53 @@ class NativePipeline:
             status.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
         )
         return status
+
+    # -- the Reference matcher's scan --
+
+    def refscan_new(self, pattern: re.Pattern, extra_flags: str = ""):
+        """Compile a scan union (named groups ``g<i>``) with PCRE2+JIT.
+
+        Byte mode is the faithful twin of the repo's rb() patterns (re.A:
+        ASCII-only \\b/\\w/case folding; in UTF-8 every non-ASCII byte is
+        a non-word byte, as re.A treats non-ASCII characters).  ``'u'`` in
+        ``extra_flags`` switches to PCRE2_UTF|PCRE2_UCP, which rb()
+        patterns do not mean.  Returns an opaque handle, or None if PCRE2
+        rejects the pattern (the caller keeps the Python scan)."""
+        data = _pcre_pattern(pattern)
+        flags = (_flags_str(pattern) + extra_flags).encode()
+        return self._lib.pipe_refscan_new(data, len(data), flags) or None
+
+    def refscan_min(self, handle, section: str) -> int:
+        """Min named-group pool index over every scan hit; -1 no hit,
+        -2 PCRE2 resource failure (the caller falls back to Python)."""
+        data = section.encode("utf-8")
+        return self._lib.pipe_refscan_min(handle, data, len(data))
+
+    def refscan_set_singles(
+        self, handle, patterns: list[re.Pattern], extra_flags: str = "",
+    ) -> bool:
+        """Attach the per-pool-index patterns the exact resolver needs
+        (all must share one flag set); False if PCRE2 rejects any."""
+        if not patterns:
+            return False
+        flags = {_flags_str(p) for p in patterns}
+        if len(flags) != 1:
+            return False
+        blob = b"\0".join(_pcre_pattern(p) for p in patterns)
+        # the expected count makes an index shift (an embedded NUL
+        # splitting one pattern in two) a hard failure
+        n = self._lib.pipe_refscan_set_singles(
+            handle, blob, len(blob),
+            (flags.pop() + extra_flags).encode(), len(patterns),
+        )
+        return n == len(patterns)
+
+    def refscan_resolve(self, handle, section: str) -> int:
+        """The exact first-matching pool index (the union's floor and the
+        per-index shadow re-checks, all in C); -1 no match, -2 fall back
+        to the Python chain."""
+        data = section.encode("utf-8")
+        return self._lib.pipe_refscan_resolve(handle, data, len(data))
 
     def exact_hash(self, wordset) -> bytes:
         """The 16-byte hash pipe_featurize computes, for a Python-side

@@ -1,7 +1,8 @@
 """BatchProject: classify a manifest of blobs into JSONL rows.
 
 The port's counterpart of `licensee_tpu/projects/batch_project.py`, one
-device, license mode: manifest -> read + featurize worker threads (or
+device, every mode (license, readme, package, auto), ``closest`` and
+``attribution``: manifest -> read + featurize worker threads (or
 spawned worker processes, ``featurize_procs``) -> coalescing of the
 device rows of consecutive batches into full device chunks -> up to
 ``pipeline_depth`` groups in flight on the card (`dispatch_chunks_async`,
@@ -20,8 +21,8 @@ the sidecar are byte-identical to the JAX package's, so either package
 resumes the other's partial output.
 
 What waits for later slices (ROADMAP A): stripes and multi-host runs,
-several devices (lanes), containers, progress lines, the obs registry,
-closest, attribution and the readme/package/auto modes.
+several devices (lanes), containers, progress lines and the obs
+registry.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 
 import licensee_tpu_torch
 from licensee_tpu_torch.kernels.batch import BatchClassifier
@@ -71,8 +72,9 @@ def _mp_init(corpus, mode, batch_size):
     )
 
 
-def _mp_produce(chunk, mode, dedupe):
-    return (chunk, *produce_batch(_MP_STATE["clf"], chunk, mode, dedupe))
+def _mp_produce(chunk, mode, dedupe, attribution):
+    return (chunk, *produce_batch(
+        _MP_STATE["clf"], chunk, mode, dedupe, attribution))
 
 
 @dataclass
@@ -81,6 +83,8 @@ class BatchStats:
     prefiltered_copyright: int = 0
     prefiltered_exact: int = 0
     dice_matched: int = 0
+    reference_matched: int = 0
+    package_matched: int = 0
     unmatched: int = 0
     read_errors: int = 0
     featurize_errors: int = 0
@@ -88,6 +92,9 @@ class BatchStats:
     # blobs past the MAX_LICENSE_SIZE 64 KiB cap: skipped, never
     # truncated-and-scored (their rows carry error="oversized")
     skipped_oversized: int = 0
+    # --mode auto: rows per dispatched chain ("license", "readme",
+    # "package", "none" for filenames no table scores)
+    routed: dict = field(default_factory=dict)
     # rows scored on the device (the Dice-bound rows)
     device_rows: int = 0
     # per-stage wall-clock seconds: read and featurize add up over the
@@ -102,9 +109,13 @@ class BatchStats:
     def add_stage(self, stage: str, seconds: float) -> None:
         self.stage_seconds[stage] = self.stage_seconds.get(stage, 0.0) + seconds
 
+    def add_route(self, route: str | None) -> None:
+        route = route or "none"
+        self.routed[route] = self.routed.get(route, 0) + 1
+
     def as_dict(self) -> dict:
         d = dict(self.__dict__)
-        for key in ("pipeline", "dispatch"):
+        for key in ("routed", "pipeline", "dispatch"):
             if not d[key]:
                 del d[key]
         d["stage_seconds"] = {
@@ -132,6 +143,8 @@ class BatchProject:
         coalesce_batches: int = 32,
         corpus_source: str | None = None,
         pipeline_depth: int = 2,
+        closest: int = 0,
+        attribution: bool = False,
         device="cuda",
     ):
         self.paths = list(manifest_paths)
@@ -140,6 +153,7 @@ class BatchProject:
             method=method,
             pad_batch_to=batch_size,
             mode=mode,
+            closest=closest,
             device=device,
         )
         self.batch_size = batch_size
@@ -175,14 +189,18 @@ class BatchProject:
         self.mode = self.classifier.mode
         # Content dedupe: real license corpora are dominated by verbatim
         # copies of a few hundred texts, and a verdict is a function of
-        # the content and the HTML gate alone, so a hit is exact.  FIFO-
-        # bounded; the workers only read it (GIL-atomic dict ops), the
-        # writer thread alone inserts.
+        # the content and the filename dispatch alone (the HTML gate, the
+        # package matcher table, the copyright? gate with attribution),
+        # so a hit is exact.  FIFO-bounded; the workers only read it
+        # (GIL-atomic dict ops), the writer thread alone inserts.
         self.dedupe = dedupe
         self._dedupe_cache: dict = {}
         # the --corpus value, recorded in the resume sidecar so a corpus
         # refusal can name the corpus that wrote the output
         self.corpus_source = corpus_source
+        # --attribution: the copyright line of each matched row, a host
+        # regex after the match (with dedupe, once per unique content)
+        self.attribution = attribution
         self.stats = BatchStats()
 
     @classmethod
@@ -218,7 +236,7 @@ class BatchProject:
         with the live cross-batch dedupe cache."""
         chunk = self.paths[start : start + self.batch_size]
         return (chunk, *produce_batch(
-            self.classifier, chunk, self.mode, self.dedupe,
+            self.classifier, chunk, self.mode, self.dedupe, self.attribution,
             cache=self._dedupe_cache if self.dedupe else None,
         ))
 
@@ -228,30 +246,33 @@ class BatchProject:
         ``<output>.meta.json`` so a resumed run can prove it appends rows
         of the same shape, whichever package wrote the earlier ones."""
         corpus = self.classifier.corpus
-        corpus_id = {
-            "templates": corpus.n_templates,
-            "vocab": len(corpus.vocab),
-            "keys_sha1": hashlib.sha1(
-                "\n".join(corpus.keys).encode(), usedforsecurity=False
-            ).hexdigest(),
-            # the templates' normalized-content hashes: an edited template
-            # with unchanged keys and vocab size refuses to resume
-            "content_sha1": hashlib.sha1(
-                "\n".join(
-                    sorted(
-                        f"{key}:{h}" for h, key in corpus.content_hashes.items()
-                    )
-                ).encode(),
-                usedforsecurity=False,
-            ).hexdigest(),
-        }
+        corpus_id = None
+        if corpus is not None:  # package mode is host-only, corpus-free
+            corpus_id = {
+                "templates": corpus.n_templates,
+                "vocab": len(corpus.vocab),
+                "keys_sha1": hashlib.sha1(
+                    "\n".join(corpus.keys).encode(), usedforsecurity=False
+                ).hexdigest(),
+                # the templates' normalized-content hashes: an edited
+                # template with unchanged keys and vocab size refuses to
+                # resume
+                "content_sha1": hashlib.sha1(
+                    "\n".join(
+                        sorted(
+                            f"{key}:{h}"
+                            for h, key in corpus.content_hashes.items()
+                        )
+                    ).encode(),
+                    usedforsecurity=False,
+                ).hexdigest(),
+            }
         return {
             "mode": self.mode,
             "corpus": corpus_id,
             "threshold": self.threshold,
-            # closest and attribution wait for a later slice
-            "closest": 0,
-            "attribution": False,
+            "closest": self.classifier.closest,
+            "attribution": self.attribution,
             # the container-expansion fingerprint: containers wait for a
             # later slice, so a loose manifest's None
             "ingest": None,
@@ -362,6 +383,7 @@ class BatchProject:
                         self.paths[start : start + self.batch_size],
                         self.mode,
                         self.dedupe,
+                        self.attribution,
                     ))
                 else:
                     futures.append(pool.submit(produce_timed, start))
@@ -386,7 +408,7 @@ class BatchProject:
                 gather.clear()
                 gather_todo = 0
                 t0 = time.perf_counter()
-                prepareds = [b[5] for b in batches]
+                prepareds = [b[6] for b in batches]
                 merged = device_fut = None
                 if any(p.todo for p in prepareds):
                     # non-blocking submit: the future resolves in the
@@ -452,8 +474,8 @@ class BatchProject:
                     # keep up to pipeline_depth dispatched groups in
                     # flight before draining the oldest
                     while futures and len(pending) < self.pipeline_depth:
-                        (chunk, read_errs, keys, preset, dup_of, prepared,
-                         pre_rows, (t_read, t_feat)) = (
+                        (chunk, read_errs, keys, preset, dup_of, routes,
+                         prepared, contents, pre_rows, (t_read, t_feat)) = (
                             futures.popleft().result()
                         )
                         submit_next()
@@ -484,7 +506,8 @@ class BatchProject:
                             # batch waits in the buffer
                             prepared.compact_features()
                         gather.append((chunk, read_errs, keys, preset,
-                                       dup_of, prepared, pre_rows))
+                                       dup_of, routes, prepared, contents,
+                                       pre_rows))
                         gather_todo += len(prepared.todo)
                         if (
                             gather_todo >= self.classifier.pad_batch_to
@@ -511,7 +534,7 @@ class BatchProject:
                             merged, outs, self.threshold
                         )
                         self.classifier.scatter_merged(
-                            [b[5] for b in batches], merged
+                            [b[6] for b in batches], merged
                         )
                     self.stats.add_stage("score", time.perf_counter() - t0)
                     for b in batches:
@@ -528,14 +551,17 @@ class BatchProject:
         return self.stats
 
     def _write_batch(self, batch, out) -> None:
-        """Resolve one finished batch's duplicates, count it, fill the
-        dedupe cache and write its rows (the writer thread's body)."""
-        chunk, read_errs, keys, preset, dup_of, prepared, pre_rows = batch
+        """Resolve one finished batch's duplicates, attribute its matched
+        rows, count it, fill the dedupe cache and write its rows (the
+        writer thread's body)."""
+        (chunk, read_errs, keys, preset, dup_of, routes, prepared, contents,
+         pre_rows) = batch
         results = prepared.results
         for i, j in dup_of.items():
             results[i] = results[j]
         stats = self.stats
         cache = self._dedupe_cache
+        attribution_for = self.classifier.attribution_for
         read_errors = featurize_errors = dedupe_hits = skipped_oversized = 0
         lines = []
         for k, (path, read_err, result) in enumerate(
@@ -552,13 +578,38 @@ class BatchProject:
                 error = result.error
                 featurize_errors += 1
             else:
+                if (
+                    self.attribution
+                    and preset[k] is None
+                    and result.key is not None
+                ):
+                    result.attribution = attribution_for(
+                        contents[k],
+                        os.path.basename(path),
+                        result,
+                        route=routes[k] if routes is not None else None,
+                    )
                 self._count(result)
-                if preset[k] is not None:
+                if routes is not None and routes[k] is None:
+                    pass  # an unrouted name: nothing to cache
+                elif preset[k] is not None:
                     dedupe_hits += 1
                 elif self.dedupe and keys[k] is not None:
                     if len(cache) >= DEDUPE_CAP:
                         cache.pop(next(iter(cache)))  # FIFO bound
-                    cache[keys[k]] = result
+                    # a snapshot with a tuple candidate list, not the
+                    # row itself: the cached result is handed out as a
+                    # preset row many times and must never change
+                    cache[keys[k]] = replace(
+                        result,
+                        closest=(
+                            tuple(result.closest)
+                            if result.closest is not None
+                            else None
+                        ),
+                    )
+            if routes is not None:
+                stats.add_route(routes[k])
             if pre_rows is not None and pre_rows[k] is not None:
                 lines.append(pre_rows[k])
             else:
@@ -579,5 +630,11 @@ class BatchProject:
             self.stats.prefiltered_exact += 1
         elif result.matcher == "dice":
             self.stats.dice_matched += 1
+        elif result.matcher == "reference":
+            self.stats.reference_matched += 1
+        elif result.matcher is not None:
+            # package mode: the gemspec/npmbower/cabal/cargo/cran/
+            # distzilla/nuget/spdx matchers
+            self.stats.package_matched += 1
         else:
             self.stats.unmatched += 1

@@ -1,12 +1,12 @@
 """Shared blob featurize + prefilter helpers of the batch pipeline.
 
-The port's counterpart of `licensee_tpu/serve/featurize.py`, license
-mode: the capped read policy, the dispatch/content cache key, the batch
-produce core (read + dedupe + prefilter + featurize, with its read hook
-and stage seconds) and the JSONL row renderer, so the port writes rows
-byte-identical to the JAX package's.  The single-request twin the
-online micro-batcher calls, container reads, attribution and auto
-routing wait for later slices (ROADMAP A).
+The port's counterpart of `licensee_tpu/serve/featurize.py`: the capped
+read policy, the route-aware dispatch/content cache key, the batch
+produce core (route + read + dedupe + prefilter + featurize, with its
+read hook and stage seconds, and the contents kept for the attribution
+pass) and the JSONL row renderer, so the port writes rows byte-identical
+to the JAX package's.  The single-request twin the online micro-batcher
+calls and container reads wait for later slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -19,12 +19,19 @@ import time
 
 from licensee_tpu_torch.ingest import OVERSIZED, SkippedBlob
 from licensee_tpu_torch.kernels.batch import BatchClassifier, BlobResult
+from licensee_tpu_torch.project_files.license_file import COPYRIGHT_NAME_REGEX
 
 # placeholder for a row that duplicates an earlier row of the SAME batch:
 # prepare_batch skips it like any preset row, and the pipeline replaces it
 # with the original's finished result before anything reads it.  The error
 # marker makes an accidental leak visible instead of silent.
 IN_BATCH_DUP = BlobResult(None, None, 0.0, error="in_batch_dup_unresolved")
+
+# the shared row for --mode auto entries no filename table scores: the
+# file is never read, hashed or featurized (find_files drops score-0
+# names before load_file, project.rb:111-124).  Finished results are
+# never mutated, so one instance serves every such row.
+UNROUTED = BlobResult(None, None, 0.0)
 
 
 def read_capped(path: str):
@@ -51,32 +58,54 @@ def json_str(s: str | None) -> str:
 
 def jsonl_row(path: str, result, error: str | None) -> str:
     """One output row as JSON, in the JAX package's exact byte layout:
-    the confidence is a float whose repr IS its JSON form.  (The
-    ``closest`` and ``attribution`` members of the JAX rows wait with
-    their features.)"""
+    the confidences are floats whose repr IS their JSON form."""
     row = (
         f'{{"path": {json.dumps(path)}, "key": {json_str(result.key)}, '
         f'"matcher": {json_str(result.matcher)}, '
         f'"confidence": {result.confidence!r}'
     )
+    if result.closest is not None:
+        inner = ", ".join(
+            f"[{json_str(k)}, {c!r}]" for k, c in result.closest
+        )
+        row += f', "closest": [{inner}]'
+    if result.attribution is not None:
+        row += f', "attribution": {json.dumps(result.attribution)}'
     if error is not None:
         row += f', "error": {json.dumps(error)}'
     return row + "}"
 
 
-def dispatch_key(route: str, filename: str | None):
-    """The filename-dependent part of a result-cache key: in license
-    mode only the HTML gate reads the filename."""
-    return (route, BatchClassifier._is_html(filename))
+def dispatch_key(
+    route: str, filename: str | None, attribution: bool = False
+):
+    """The filename-dependent part of a result-cache key: in package
+    mode the whole matcher table reads the filename, in license and
+    readme mode only the HTML gate does.  With attribution on, the
+    copyright? filename gate (project_file.rb:94) feeds the result too,
+    so COPYRIGHT and LICENSE holding the same bytes get separate keys."""
+    if route == "package":
+        return (route, filename)
+    key = (route, BatchClassifier._is_html(filename))
+    if attribution:
+        key += (
+            bool(COPYRIGHT_NAME_REGEX.search(filename)) if filename else False,
+        )
+    return key
 
 
-def content_key(route: str, filename: str | None, content: bytes):
+def content_key(
+    route: str,
+    filename: str | None,
+    content: bytes,
+    attribution: bool = False,
+):
     """The full result-cache key: (dispatch, content hash).
 
     usedforsecurity=False: a cache key, not crypto — and FIPS-mode
     OpenSSL would otherwise refuse sha1 entirely."""
     return (
-        dispatch_key(route, filename),
+        dispatch_key(route, filename, attribution),
         hashlib.sha1(content, usedforsecurity=False).digest(),
     )
 
@@ -85,34 +114,41 @@ def _read_loose(path: str, _i: int):
     return read_capped(path)
 
 
-def produce_batch(classifier, chunk, mode, dedupe, cache=None, read=None):
-    """The produce stage: read + dedupe + prefilter + featurize one chunk
-    of manifest paths, shared by the thread path (live ``cache``) and the
-    worker-process path (``cache=None``: the cross-batch cache lives in
-    the parent, which applies it on receipt).
+def produce_batch(
+    classifier, chunk, mode, dedupe, attribution=False, cache=None, read=None,
+):
+    """The produce stage: route + read + dedupe + prefilter + featurize
+    one chunk of manifest paths, shared by the thread path (live
+    ``cache``) and the worker-process path (``cache=None``: the
+    cross-batch cache lives in the parent, which applies it on receipt).
 
     ``read(path, i)`` loads one blob by display path and in-chunk index;
     the default reads loose files with :func:`read_capped`.  A read may
     answer bytes, None (a ``read_error`` row) or a :class:`SkippedBlob`
-    (a row carrying its skip reason, e.g. ``oversized``).
+    (a row carrying its skip reason, e.g. ``oversized``).  In auto mode
+    the filename routes first: an entry no score table claims is never
+    read, hashed or featurized.
 
-    Returns ``(read_errs, keys, preset, dup_of, prepared, pre_rows,
-    (read_s, featurize_s))``: the per-row read disposition (None,
-    ``"read_error"`` or the skip reason), the dedupe keys, the rows
-    answered from ``cache`` or marked as in-batch duplicates, the
-    duplicate -> original row map, the prepared batch, the JSONL lines
-    already final here (cache hits; None where there are none) and the
-    stage's seconds."""
-    if mode != "license":
-        raise NotImplementedError(
-            f"mode {mode!r} waits for a later slice of the port "
-            "(ROADMAP A, readme/package/auto modes)"
-        )
+    Returns ``(read_errs, keys, preset, dup_of, routes, prepared,
+    contents, pre_rows, (read_s, featurize_s))``: the per-row read
+    disposition (None, ``"read_error"`` or the skip reason), the dedupe
+    keys, the rows answered from ``cache``, unrouted or marked as
+    in-batch duplicates, the duplicate -> original row map, the auto
+    routes (None in the fixed modes), the prepared batch, the raw
+    contents the attribution pass may still need (None without
+    ``attribution``), the JSONL lines already final here (None where
+    there are none) and the stage's seconds."""
     if read is None:
         read = _read_loose
     filenames = [os.path.basename(p) for p in chunk]
+    routes: list | None = None
+    if mode == "auto":
+        routes = [BatchClassifier.route_for(f) for f in filenames]
     t0 = time.perf_counter()
-    contents = [read(p, i) for i, p in enumerate(chunk)]
+    contents = [
+        read(p, i) if routes is None or routes[i] is not None else b""
+        for i, p in enumerate(chunk)
+    ]
     read_errs: list = [None] * len(chunk)
     for i, c in enumerate(contents):
         if c is None:
@@ -124,12 +160,17 @@ def produce_batch(classifier, chunk, mode, dedupe, cache=None, read=None):
     keys: list = [None] * len(chunk)
     preset: list = [None] * len(chunk)
     dup_of: dict[int, int] = {}
+    if routes is not None:
+        for i, route in enumerate(routes):
+            if route is None:
+                preset[i] = UNROUTED
     if dedupe:
         first_seen: dict = {}
         for i, c in enumerate(contents):
-            if c is None:
+            if c is None or preset[i] is not None:
                 continue
-            keys[i] = content_key(mode, filenames[i], c)
+            route = routes[i] if routes is not None else mode
+            keys[i] = content_key(route, filenames[i], c, attribution)
             if cache is not None:
                 preset[i] = cache.get(keys[i])
             if preset[i] is None:
@@ -143,11 +184,13 @@ def produce_batch(classifier, chunk, mode, dedupe, cache=None, read=None):
         [c if c is not None else b"" for c in contents],
         filenames=filenames,
         preset=preset,
+        routes=routes,
     )
-    # render the rows already final here (cache hits) on the parallel
-    # produce worker instead of the writer's serial section: a preset
-    # row is never a read error and never an error result (the cache
-    # holds clean rows only), so the line is what the writer would emit
+    # render the rows already final here (cache hits, unrouted rows) on
+    # the parallel produce worker instead of the writer's serial section:
+    # a preset row is never a read error and never an error result (the
+    # cache holds clean rows only), so the line is what the writer would
+    # emit
     pre_rows: list | None = None
     for i, p in enumerate(preset):
         if p is not None and p is not IN_BATCH_DUP:
@@ -155,7 +198,23 @@ def produce_batch(classifier, chunk, mode, dedupe, cache=None, read=None):
                 pre_rows = [None] * len(chunk)
             pre_rows[i] = jsonl_row(chunk[i], p, None)
     t2 = time.perf_counter()
+    kept = None
+    if attribution:
+        # keep the raw contents only of rows that can still need the
+        # attribution regex (license or readme route, not finished as
+        # unmatched, not a preset or duplicate row): in process mode each
+        # kept row is pickled to the parent
+        kept = []
+        for i, c in enumerate(contents):
+            route = routes[i] if routes is not None else mode
+            r = prepared.results[i]
+            need = (
+                route in ("license", "readme")
+                and preset[i] is None
+                and (r is None or (r.key is not None and not r.error))
+            )
+            kept.append(c if need else None)
     return (
-        read_errs, keys, preset, dup_of, prepared, pre_rows,
+        read_errs, keys, preset, dup_of, routes, prepared, kept, pre_rows,
         (t1 - t0, t2 - t1),
     )

@@ -368,3 +368,116 @@ def test_pipeline_on_the_card_matches_cpu_at_every_depth(card, tmp_path,
         outs[device, depth] = out.read_bytes()
     assert len(set(outs.values())) == 1
     assert len(set(launch_streams)) == 1 and len(launch_streams) > 3
+
+
+# -- K4's top-k and the --closest / mode paths -------------------------------
+
+
+def random_planes(card, rng, B, T, excluded_p=0.1, tie_every=0):
+    """(num, den) planes as the score algebra gives them: num in
+    [-1, 3000), den >= 1, some pairs excluded to (-1, 1); with
+    ``tie_every`` > 0, template t copies template t mod ``tie_every``
+    (exact ties across the lanes' columns)."""
+    num = rng.integers(0, 3000, (B, T)).astype(np.int32)
+    den = rng.integers(1, 6000, (B, T)).astype(np.int32)
+    if tie_every:
+        src = np.arange(T) % tie_every
+        num, den = num[:, src], den[:, src]
+    out = rng.random((B, T)) < excluded_p
+    num[out], den[out] = -1, 1
+    return (torch.from_numpy(np.ascontiguousarray(num)).to(card),
+            torch.from_numpy(np.ascontiguousarray(den)).to(card))
+
+
+@pytest.mark.parametrize("k", [1, 4, 47])
+@pytest.mark.parametrize("T", [1, 31, 47, 608, 7000])
+@pytest.mark.parametrize("B", [1, 9, 4096])
+def test_topk_matches_plain(card, B, T, k):
+    """`topk_exact` against `dice_ref.topk_candidates`, bit for bit, at
+    ragged B and T (T=7000: one row a block, over 48 KB of shared
+    memory) and at k past T (the repeat rounds)."""
+    rng = np.random.default_rng(B * 100 + T + k)
+    num, den = random_planes(card, rng, B, T)
+    before = dice_cuda.LAUNCHES["topk_exact"]
+    got = dice_cuda.topk_exact(num, den, k)
+    want = dice_cuda.topk_exact_plain(num, den, k)
+    assert dice_cuda.LAUNCHES["topk_exact"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == (B, k) and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tie_every", [1, 2, 5])
+def test_topk_ties_and_all_excluded_rows(card, tie_every):
+    """Exact ties go to the lower index in every round; a row whose
+    every entry is excluded gives template 0 at (-1, 1) in every round,
+    as the reference's masked rounds do."""
+    rng = np.random.default_rng(tie_every)
+    num, den = random_planes(card, rng, 300, 608, tie_every=tie_every)
+    num[::3], den[::3] = -1, 1
+    got = dice_cuda.topk_exact(num, den, 608)
+    want = dice_cuda.topk_exact_plain(num, den, 608)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    idx, knum, kden = got
+    assert (idx[::3] == 0).all() and (knum[::3] == -1).all()
+    assert (kden[::3] == 1).all()
+
+
+def test_topk_refuses_what_it_cannot_take(card):
+    num = torch.zeros((4, 8), dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        dice_cuda.topk_exact(num.float(), num, 2)
+    with pytest.raises(ValueError):
+        dice_cuda.topk_exact(num, num[:, :4].contiguous(), 2)
+    with pytest.raises(ValueError, match="k >= 0"):
+        dice_cuda.topk_exact(num, num, -1)
+    with pytest.raises(ValueError, match="too wide"):
+        dice_cuda.topk_warps(30000)
+
+
+@pytest.mark.parametrize("method", ["popcount", "matmul"])
+def test_topk_scorer_matches_plain(card, method):
+    """The --closest scorer on the card (K1's planes or K2 and the
+    algebra, then the top-k) against the same scorer on the CPU: no
+    best_match_fused and no argmax."""
+    corpus = default_corpus()
+    rng = np.random.default_rng(7)
+    W = corpus.n_lanes
+    feats = (rng.integers(0, 2**32, (1000, W), dtype=np.uint32),
+             rng.integers(0, 3000, 1000).astype(np.int32),
+             rng.integers(0, 60000, 1000).astype(np.int32),
+             rng.random(1000) < 0.2)
+    cpu = dice_cuda.make_best_match_fn(
+        convert.corpus_tensors(corpus, torch.device("cpu")), method, k=4)
+    gpu = dice_cuda.make_best_match_fn(
+        convert.corpus_tensors(corpus, card), method, k=4)
+    dice_cuda.reset_launches()
+    got = gpu(*feats)
+    assert dice_cuda.LAUNCHES["topk_exact"] == 1
+    assert dice_cuda.LAUNCHES["best_match_fused"] == 0
+    assert len(got) == 6
+    for a, b in zip(got, cpu(*feats)):
+        assert np.array_equal(a, b)
+
+
+def test_batch_detect_modes_on_the_card_match_cpu(card, tmp_path):
+    """`batch-detect` over a mixed crawl manifest in the auto mode with
+    --closest 3 --attribution, and in the readme and package modes, on
+    the card and on the CPU."""
+    import chip_smoke
+
+    manifest = chip_smoke.write_mixed_manifest(np, str(tmp_path / "rows"), 4,
+                                               n_repos=150)
+    for flags in (["--mode", "auto", "--closest", "3", "--attribution"],
+                  ["--mode", "readme"], ["--mode", "package"]):
+        outs = []
+        for device in ("cpu", "cuda"):
+            dice_cuda.reset_launches()
+            out = tmp_path / f"{flags[1]}.{device}.jsonl"
+            assert port_main(["batch-detect", manifest, "--output", str(out),
+                              "--device", device, *flags]) == 0
+            outs.append(out.read_bytes())
+        if "--closest" in flags:
+            assert dice_cuda.LAUNCHES["topk_exact"] > 0
+            assert dice_cuda.LAUNCHES["best_match_fused"] == 0
+        assert outs[0] == outs[1]

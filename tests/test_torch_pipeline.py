@@ -324,10 +324,11 @@ def test_produce_batch_read_hook_and_stage_seconds():
     clf = BatchClassifier(device=None)
     cached = BlobResult("mit", "dice", 98.5, 197, 200)
     cache = {content_key("license", "LICENSE", b"Some other text"): cached}
-    (read_errs, keys, preset, dup_of, prepared, pre_rows,
+    (read_errs, keys, preset, dup_of, routes, prepared, kept, pre_rows,
      (read_s, feat_s)) = produce_batch(
         clf, chunk, "license", True, cache=cache,
         read=lambda path, i: blobs[i])
+    assert routes is None and kept is None  # no auto mode, no attribution
     assert read_errs == [None, "read_error", "oversized", None, None]
     assert keys[1] is keys[2] is None and keys[0] == keys[3]
     assert dup_of == {3: 0} and preset[3] is IN_BATCH_DUP

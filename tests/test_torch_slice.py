@@ -135,10 +135,21 @@ def test_cuda_is_the_default_and_never_falls_back(tmp_path, capsys):
 
 
 def test_waiting_features_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchClassifier(mode="readme", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchClassifier(closest=3, device="cpu")
+    """The refusals the JAX package keeps, kept by the port as it keeps
+    them: an unknown mode, closest < 0, closest with the pallas methods
+    and closest in package mode (and an unknown method)."""
+    refused = [
+        ({"mode": "bogus"}, "unknown mode"),
+        ({"closest": -1}, "closest must be >= 0"),
+        ({"closest": 3, "method": "pallas"}, "pallas"),
+        ({"closest": 3, "method": "pallas-mxu"}, "pallas"),
+        ({"closest": 3, "mode": "package"}, "package mode"),
+    ]
+    for kwargs, match in refused:
+        with pytest.raises(ValueError, match=match):
+            JaxBatchClassifier(mesh=None, **kwargs)
+        with pytest.raises(ValueError, match=match):
+            BatchClassifier(device="cpu", **kwargs)
     with pytest.raises(ValueError):
         BatchClassifier(method="bogus", device="cpu")
 
@@ -180,9 +191,15 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "'licensee_tpu_torch.native.build', "
         "'licensee_tpu_torch.native.pipeline', "
         "'licensee_tpu_torch.native.textops', "
-        "'licensee_tpu_torch.obs.pipeline'}\n"
+        "'licensee_tpu_torch.obs.pipeline', "
+        "'licensee_tpu_torch.corpus.artifact', "
+        "'licensee_tpu_torch.matchers.base', "
+        "'licensee_tpu_torch.matchers.package', "
+        "'licensee_tpu_torch.matchers.reference_matcher', "
+        "'licensee_tpu_torch.project_files.package_manager_file', "
+        "'licensee_tpu_torch.project_files.readme_file'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
-        "sys.exit(1 if bad or len(names) < 28 or new - set(names) else 0)\n"
+        "sys.exit(1 if bad or len(names) < 35 or new - set(names) else 0)\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)

@@ -72,7 +72,7 @@ def test_load_corpus_sources(synth_dirs, tmp_path):
     assert load_corpus(synth_dirs[0]).n_templates == N_TEMPLATES
     artifact = tmp_path / "corpus.npz"
     artifact.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="cannot read artifact"):
         load_corpus(str(artifact))
     with pytest.raises(ValueError):
         load_corpus(str(tmp_path / "missing"))
