@@ -6,8 +6,9 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
 
 1. device: the card's name and power limit (nvidia-smi), its torch name,
    the device count, its SM count and maximum SM clock;
-2. build: the three kernel sources of `licensee_tpu_torch/csrc/` compiled by
-   nvcc for sm_90a, with ptxas's register/shared-memory report, and,
+2. build: the three kernel sources of `licensee_tpu_torch/csrc/` (five
+   entry points) compiled by nvcc for sm_90a, with ptxas's
+   register/shared-memory report, and,
    meanwhile, the native featurizer (`native/pipeline.cpp`,
    `native/textops.cpp`) by g++ against libpcre2; the run fails if the
    native featurizer does not load (a Python fallback would hide it);
@@ -28,14 +29,17 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    Dice-bound chunks) and on a case of exact ties across the kernel's
    template splits and all-excluded rows.  Then the whole score step per
    4096-row batch, the argmax included, at both widths (K1 fused against
-   K2 plus the score algebra and the argmax in PyTorch, and K1's planes
-   plus the top-k of the --closest path): the times `resolve_method`'s
-   crossover rests on.  K4's top-k (`topk_exact`, csrc/dice_topk.cu) is
-   held bit for bit against its plain version on K1's planes at the four
-   shapes above with k = 4 (--closest 3) and k = T, and on the ties case,
-   whose all-excluded rows must give template 0 at (-1, 1) in every
-   round; each is timed beside its bound (the planes' bytes, or k rounds
-   of exact compares);
+   K2 plus the score algebra and the argmax in PyTorch, K1's planes plus
+   `topk_exact`, and K1 with the top-k fused, `topk_fused`, which the
+   --closest path runs): the times `resolve_method`'s crossover rests
+   on.  `topk_fused` (K1's third epilogue) is held bit for bit against
+   its plain version at the four shapes above and on the ties case with
+   k = 4 (--closest 3) and k = `K_FUSED_MAX`; K4's top-k (`topk_exact`,
+   csrc/dice_topk.cu) on K1's planes at the four shapes with k = 4 and
+   k = T, and on the ties case, whose all-excluded rows must give
+   template 0 at (-1, 1) in every round.  Each is timed beside its bound
+   (the bytes, or the exact compares that selecting k of T needs,
+   `topk_compares`);
 4. slice: `batch-detect` through the port's CLI on a ~2000-file manifest
    (the vendored templates rendered with field values, the test
    fixtures, and seeded word-level mutations of both), once through K1
@@ -70,16 +74,25 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    --attribution, --mode readme and --mode package, each byte-identical
    to --device cpu and to --pipeline-depth 1 --workers 1, with the auto
    run's resume drill and torch.profiler runs of auto and readme; then
-   --closest 3 over the T=608 manifest through K1 (`score_pairs_fused`
-   then `topk_exact`) and K2 (--method matmul) against --device cpu,
-   and a `corpus-build` artifact of the SPDX directory through --corpus
-   ART, byte-identical to --corpus DIR.  A --closest run fails if it
-   launched `best_match_fused`, ran the argmax on the card or never
-   launched `topk_exact`.
+   --closest 3 over the T=608 manifest through K1 (`topk_fused`) and K2
+   (--method matmul, then `topk_exact`) against --device cpu, and a
+   `corpus-build` artifact of the SPDX directory through --corpus ART,
+   byte-identical to --corpus DIR.  A --closest run through K1 fails
+   unless it launched `topk_fused` and never `score_pairs_fused`,
+   `topk_exact` or `best_match_fused`; one through K2 unless it launched
+   `topk_exact`; neither may run the argmax on the card;
+7. containers: the mixed manifest's 2,400 repositories packed as 800
+   .tar, 600 .tar.gz, 600 .zip and 400 git repositories (git objects
+   written in Python where git is missing) and listed as container
+   entries, ~10,000 expanded rows, under --mode auto --closest 3
+   --attribution and --mode license at default flags, each against
+   --device cpu, --pipeline-depth 1 --workers 1 and --featurize-procs 4
+   (the JSONL and OUT.containers.jsonl byte for byte), and the resume
+   drill, which must give both files' sha256 again.
 
 A row's ``launches`` counts its kernel over its width's card runs of
-phases 4 to 6, each run between a reset of the counts and a read; the
-planes kernel (`score_pairs_fused`) launches on the --closest runs.
+phases 4 to 7, each run between a reset of the counts and a read; the
+planes kernel (`score_pairs_fused`) launches on no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -408,6 +421,50 @@ def k1_bound(B, T, W, epilogue: str, sm_clocks_per_s: float):
     return n_bytes, max(tensor_ms, alu_ms), how
 
 
+def k1_topk_bound(B, T, W, k, sm_clocks_per_s):
+    """K1 with the top-k fused: its bytes (the inputs as for the other
+    epilogues, k (idx, num, den) triples a blob out) and operations (the
+    pair-words on the single-bit tensor cores against the score algebra
+    of every pair plus the exact compares that selecting k of T needs,
+    `topk_compares`, on the CUDA cores)."""
+    n_bytes = B * W * 4 + T * W * 4 + T * 8 * 4 + B * 9 + 3 * B * k * 4
+    tensor_ms = B * T * W / (B1_PAIR_WORDS_PER_CLK_SM * sm_clocks_per_s) * 1e3
+    alu_ops = (B * T * K1_PAIR_OPS["planes"]
+               + B * topk_compares(T, k) * TOPK_COMPARE_OPS)
+    alu_ms = alu_ops / (INT_OPS_PER_CLK_SM * sm_clocks_per_s) * 1e3
+    how = (f"{B * T * W} b1 pair-words, {tensor_ms:.5f} ms; {alu_ops} "
+           f"integer ops (the algebra, and {topk_compares(T, k)} compares "
+           f"a row to select {k} of {T}), {alu_ms:.5f} ms")
+    return n_bytes, max(tensor_ms, alu_ms), how
+
+
+def topk_fused_rows(torch, label, B, T, W, run, args,
+                    sm_clocks_per_s) -> list[dict]:
+    """`topk_fused` (K1 with the top-k in its epilogue) at one shape, for
+    k = closest + 1 and k = K_FUSED_MAX: each held bit for bit against its
+    plain version and timed beside its bound."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    rows = []
+    for k in (CLOSEST + 1, dice_cuda.K_FUSED_MAX):
+        def fn(k=k):
+            return dice_cuda.topk_fused(*args, k)
+
+        def plain(k=k):
+            return dice_cuda.topk_fused_plain(*args, k)
+
+        err = held_against_plain(torch, f"topk_fused {label} k={k}", fn,
+                                 plain)
+        n_bytes, ops_ms, how = k1_topk_bound(B, T, W, k, sm_clocks_per_s)
+        rows.append(kernel_row(
+            torch, f"topk_fused@{label},k{k}", "dice_score_fused.cu",
+            "licensee_tpu/kernels/dice_pallas.py:482", B, T, W, run, err,
+            fn, plain, None, n_bytes, ops_ms, how, out_bytes=3 * B * k * 4,
+            shape={"B": B, "T": T, "W": W, "k": k},
+        ))
+    return rows
+
+
 def held_against_plain(torch, what, fn, plain) -> int:
     """The kernel's outputs against its plain version's; raises unless
     they agree bit for bit."""
@@ -494,9 +551,12 @@ def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
         suffix = "" if label == "main" else f"@{label}"
 
         # K1: the single-bit tensor-core overlap, the score algebra and
-        # (best) the exact first-max, fused
+        # (best) the exact first-max or (topk_fused) the top-k, fused
         rows += k1_rows(torch, label, B, T, W, run,
                         (meta, ct.bits, fb, nw, ln, cf), sm_clocks_per_s)
+        rows += topk_fused_rows(torch, label, B, T, W, run,
+                                (meta, ct.bits, fb, nw, ln, cf),
+                                sm_clocks_per_s)
 
         # K2: fused unpack + int8 tensor-core overlap
         def k2():
@@ -556,6 +616,14 @@ def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
         raise AssertionError("ties: an all-excluded row is not (0, -1, 1)")
     rows += k1_rows(torch, label, B, T, W, run, args, sm_clocks_per_s,
                     epilogues=("best",))
+    for k in (CLOSEST + 1, dice_cuda.K_FUSED_MAX):
+        idx, knum, kden = dice_cuda.topk_fused(*args, k)
+        if not ((idx[cf] == 0).all() and (knum[cf] == -1).all()
+                and (kden[cf] == 1).all()):
+            raise AssertionError(f"topk_fused ties k={k}: an all-excluded "
+                                 "row is not (0, -1, 1) in every round")
+    rows += topk_fused_rows(torch, label, B, T, W, run, args,
+                            sm_clocks_per_s)
     rows += topk_rows(np, torch, rng, args, sm_clocks_per_s)
     return rows
 
@@ -650,12 +718,19 @@ def time_scorers(torch, label, ct, meta, tpl_i8, feats) -> None:
         return dice_cuda.topk_exact(*dice_cuda.score_pairs_fused(
             meta, ct.bits, *feats), CLOSEST + 1)
 
+    def k1_topk_fused():
+        return dice_cuda.topk_fused(meta, ct.bits, *feats, CLOSEST + 1)
+
     held_against_plain(torch, f"scorers {label}", k1, k2)
     held_against_plain(torch, f"scorers {label} top-1 of top-k",
                        lambda: [t[:, 0] for t in k1_topk()], k1)
+    held_against_plain(torch, f"scorers {label} top-k fused", k1_topk_fused,
+                       k1_topk)
     B, T = feats[0].shape[0], ct.n_templates
     for method, fn in (("K1 fused", k1), ("K2+algebra+argmax", k2),
-                       (f"K1 planes + top-k (k={CLOSEST + 1})", k1_topk)):
+                       (f"K1 planes + top-k (k={CLOSEST + 1})", k1_topk),
+                       (f"K1 + top-k fused (k={CLOSEST + 1})",
+                        k1_topk_fused)):
         log(f"scorer {method} @{label}: B={B} T={T} "
             f"ms={cuda_time_ms(torch, fn):.4f} "
             f"device_ms={graph_time_ms(torch, fn, 2 * B * T * 4):.4f}")
@@ -1026,12 +1101,15 @@ def describe(stats: dict, elapsed: float) -> str:
 
 def drive(torch, what: str, argv: list[str], n_rows: int):
     """One `batch-detect` run through the CLI, with the kernels' launch
-    counts reset just before it and read just after.  A --closest run
-    fails if it launched `best_match_fused`, ran the argmax on the card
-    or never launched `topk_exact`; another K1 run (neither
-    --method pallas-mxu nor matmul) if it ran the planes kernel or the
-    argmax on the card.  Returns (output bytes, stats, seconds,
-    launches)."""
+    counts reset just before it and read just after.  A run fails if it
+    ran the argmax on the card, but for K2's top-1 path, which runs it
+    after the score algebra.  A --closest run through K1 fails unless
+    it launched `topk_fused` and never `score_pairs_fused`, `topk_exact`
+    or `best_match_fused`; a --closest run through K2 (--method
+    pallas-mxu or matmul) unless it launched `topk_exact` and never
+    `topk_fused` or `best_match_fused`; another K1 run if it launched
+    the planes kernel or a top-k.  Returns (output bytes, stats,
+    seconds, launches)."""
     from licensee_tpu_torch.kernels import dice_cuda
 
     on_card = "cpu" not in argv
@@ -1044,20 +1122,30 @@ def drive(torch, what: str, argv: list[str], n_rows: int):
     elapsed = time.perf_counter() - t0
     launches = dict(dice_cuda.LAUNCHES) if on_card else {}
     closest = "--closest" in argv and argv[argv.index("--closest") + 1] != "0"
-    if on_card and closest and (card_argmax[0] or launches["best_match_fused"]
-                                or not launches["topk_exact"]):
-        raise AssertionError(
-            f"{what}: the --closest path launched best_match_fused "
-            f"({launches['best_match_fused']}) or argmax_exact on the card "
-            f"({card_argmax[0]}), or never topk_exact")
     k2 = "pallas-mxu" in argv or "matmul" in argv
-    if on_card and not closest and not k2 and (
-            card_argmax[0] or launches["score_pairs_fused"]):
-        raise AssertionError(
-            f"{what}: the K1 path ran the planes kernel or argmax_exact on "
-            f"the card ({card_argmax[0]})")
+    if on_card:
+        if closest and k2:
+            want, never = "topk_exact", ("topk_fused", "best_match_fused")
+        elif closest:
+            want, never = "topk_fused", ("score_pairs_fused", "topk_exact",
+                                         "best_match_fused")
+        elif k2:
+            want, never = None, ("topk_fused", "topk_exact")
+        else:
+            want, never = None, ("score_pairs_fused", "topk_fused",
+                                 "topk_exact")
+        wrong = {n: launches[n] for n in never if launches[n]}
+        argmax_ok = k2 and not closest
+        if (card_argmax[0] and not argmax_ok) or wrong or (
+                want and not launches[want]):
+            raise AssertionError(
+                f"{what}: argmax_exact ran {card_argmax[0]} times on the "
+                f"card, {wrong} launched, or {want} never launched "
+                f"(launches {launches}; scorer "
+                f"{stats.get('dispatch', {}).get('scorer')})")
     data = read_rows(argv[argv.index("--output") + 1], n_rows, what)
-    log(f"run {what}: {describe(stats, elapsed)}; launches "
+    log(f"run {what}: {describe(stats, elapsed)}; scorer "
+        f"{stats.get('dispatch', {}).get('scorer')}; launches "
         f"{json.dumps(launches)}")
     return data, stats, elapsed, launches
 
@@ -1209,7 +1297,7 @@ def busy_share(torch, what: str, run, full: bytes) -> None:
 
 
 def phase_slice(np, torch, seed: int) -> dict:
-    """Phases 4 to 6; returns {(run, kernel): launches}."""
+    """Phases 4 to 7; returns {(run, kernel): launches}."""
     from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
@@ -1236,17 +1324,26 @@ def phase_slice(np, torch, seed: int) -> dict:
         default_flags(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
                       launches, "spdx", drill=False)
         modes(np, torch, seed, root, spdx, spdx_dir, launches)
+        containers(np, torch, seed, root, launches)
     return launches
 
 
 def resume_drill(torch, what: str, out: str, argv: list[str], full: bytes,
-                 n_rows: int) -> dict:
+                 n_rows: int, derived: tuple = ()) -> dict:
     """Cut ``out`` mid-line, resume the run and check it ends at the full
-    run's sha256 with the sidecar unchanged; returns the launches."""
+    run's sha256 with the sidecar unchanged; each file ``out + suffix``
+    of ``derived`` (the container verdicts) is removed before the resume
+    and must come back at the full run's sha256.  Returns the
+    launches."""
     import hashlib
 
     with open(out + ".meta.json", "rb") as fh:
         sidecar = fh.read()
+    want = {}
+    for suffix in derived:
+        with open(out + suffix, "rb") as fh:
+            want[suffix] = hashlib.sha256(fh.read()).hexdigest()
+        os.remove(out + suffix)
     cut = int(len(full) * 0.6)
     while full[cut - 1 : cut] == b"\n":
         cut += 1
@@ -1260,6 +1357,13 @@ def resume_drill(torch, what: str, out: str, argv: list[str], full: bytes,
             raise AssertionError(f"{what}: resume rewrote a different sidecar")
     if hashlib.sha256(data).digest() != hashlib.sha256(full).digest():
         raise AssertionError(f"{what}: the resumed output's sha256 differs")
+    for suffix, digest in want.items():
+        with open(out + suffix, "rb") as fh:
+            if hashlib.sha256(fh.read()).hexdigest() != digest:
+                raise AssertionError(
+                    f"{what}: the resumed {suffix} sha256 differs")
+        log(f"resume drill {what}: {suffix} sha256 {digest} equals the "
+            "full run's")
     if stats["total"] != n_rows - kept:
         raise AssertionError(f"{what}: resume redid {stats['total']} rows, "
                              f"not {n_rows - kept}")
@@ -1299,7 +1403,7 @@ def modes(np, torch, seed: int, root: str, spdx: str, spdx_dir: str,
     for label, flags, kernel in (
             ("auto-closest3-attribution",
              ["--mode", "auto", "--closest", str(CLOSEST), "--attribution"],
-             "topk_exact"),
+             "topk_fused"),
             ("readme", ["--mode", "readme"], "best_match_fused"),
             ("package", ["--mode", "package"], None)):
         out, argv, full, stats, got = one("vendored", label, mixed, n_rows,
@@ -1335,7 +1439,7 @@ def modes(np, torch, seed: int, root: str, spdx: str, spdx_dir: str,
     n_spdx = count_rows(spdx)
     closest = ["--closest", str(CLOSEST), "--corpus"]
     dir_out = {}
-    for method, kernel in (("auto", "score_pairs_fused"),
+    for method, kernel in (("auto", "topk_fused"),
                            ("matmul", "overlap_pairs_mma")):
         label = f"spdx-closest3-{method}"
         flags = [*closest, spdx_dir, "--method", method]
@@ -1364,6 +1468,193 @@ def modes(np, torch, seed: int, root: str, spdx: str, spdx_dir: str,
         raise AssertionError("--corpus ARTIFACT differs from --corpus DIR")
     log("modes: --corpus ARTIFACT byte-identical to --corpus DIR "
         "(the spdx-closest3-auto run)")
+
+
+# -- phase 7: containers --------------------------------------------------------
+
+# the mixed manifest's repositories as package crawls list them: sdists
+# and npm tarballs, wheels and jars, git checkouts (of every 12 repos, 4
+# .tar, 3 .tar.gz, 3 .zip, 2 git: 800 / 600 / 600 / 400 of 2,400)
+CONTAINER_CYCLE = ("tar",) * 4 + ("tar.gz",) * 3 + ("zip",) * 3 + ("git",) * 2
+ARCHIVE_MTIME = 1_600_000_000
+GIT_ENV = {"GIT_CONFIG_GLOBAL": "/dev/null", "GIT_CONFIG_SYSTEM": "/dev/null",
+           "GIT_AUTHOR_NAME": "n", "GIT_AUTHOR_EMAIL": "a@b",
+           "GIT_COMMITTER_NAME": "n", "GIT_COMMITTER_EMAIL": "a@b",
+           "GIT_AUTHOR_DATE": f"{ARCHIVE_MTIME} +0000",
+           "GIT_COMMITTER_DATE": f"{ARCHIVE_MTIME} +0000"}
+
+
+def write_git_objects(repo: str, files: list) -> None:
+    """A git repository at ``repo`` whose one commit holds ``files``
+    ((name, bytes)) at its root, written here as loose objects (zlib over
+    ``type size\\0data``, named by its sha1) with HEAD on refs/heads/main:
+    the layout git itself writes, for a host without git."""
+    import hashlib
+    import zlib
+
+    git_dir = os.path.join(repo, ".git")
+
+    def put(kind: bytes, body: bytes) -> bytes:
+        raw = kind + b" %d\0" % len(body) + body
+        sha = hashlib.sha1(raw).hexdigest()
+        path = os.path.join(git_dir, "objects", sha[:2], sha[2:])
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "wb") as fh:
+            fh.write(zlib.compress(raw))
+        return bytes.fromhex(sha)
+
+    os.makedirs(os.path.join(git_dir, "refs", "heads"), exist_ok=True)
+    tree = b"".join(
+        b"100644 " + name.encode() + b"\0" + put(b"blob", data)
+        for name, data in sorted(files, key=lambda f: f[0].encode()))
+    stamp = f"n <a@b> {ARCHIVE_MTIME} +0000".encode()
+    commit = put(b"commit", b"tree " + put(b"tree", tree).hex().encode()
+                 + b"\nauthor " + stamp + b"\ncommitter " + stamp + b"\n\nx\n")
+    with open(os.path.join(git_dir, "HEAD"), "w", encoding="ascii") as fh:
+        fh.write("ref: refs/heads/main\n")
+    with open(os.path.join(git_dir, "refs", "heads", "main"), "w",
+              encoding="ascii") as fh:
+        fh.write(commit.hex() + "\n")
+
+
+def write_git_repo(repo: str, files: list) -> None:
+    """``files`` ((name, bytes)) committed at the root of a new
+    repository: through git where it is installed, else
+    `write_git_objects`."""
+    import shutil
+
+    os.makedirs(repo)
+    if shutil.which("git") is None:
+        write_git_objects(repo, files)
+        return
+    for name, data in files:
+        with open(os.path.join(repo, name), "wb") as fh:
+            fh.write(data)
+    env = dict(os.environ, **GIT_ENV)
+    for args in (["init", "-q", "-b", "main"], ["add", "-A"],
+                 ["commit", "-qm", "x"]):
+        subprocess.run(["git", "-C", repo, *args], check=True, env=env,
+                       capture_output=True, timeout=60)
+
+
+def write_container_manifest(np, root: str, seed: int) -> tuple:
+    """`write_mixed_manifest`'s 2,400 repository directories packed as
+    containers (`CONTAINER_CYCLE`): a .tar under ``package/`` (npm), a
+    .tar.gz under ``repoN-1.0/`` (an sdist), a flat .zip (a wheel), a git
+    checkout; each listed whole (``::*``, ``::HEAD``), one archive in 40
+    also by its first member, and the mixed manifest's unreadable path.
+    Returns (manifest, expanded rows, containers by kind)."""
+    import io
+    import tarfile
+    import zipfile
+
+    from licensee_tpu_torch.ingest.sources import expand_manifest
+
+    src = write_mixed_manifest(np, os.path.join(root, "src"), seed)
+    with open(src, encoding="utf-8") as fh:
+        paths = fh.read().split()
+    repos: dict[str, list] = {}
+    for path in paths[:-1]:
+        with open(path, "rb") as fh:
+            repos.setdefault(os.path.dirname(path), []).append(
+                (os.path.basename(path), fh.read()))
+    out_dir = os.path.join(root, "packed")
+    os.makedirs(out_dir)
+    entries, kinds = [], {}
+    for i, files in enumerate(repos.values()):
+        kind = CONTAINER_CYCLE[i % len(CONTAINER_CYCLE)]
+        kinds[kind] = kinds.get(kind, 0) + 1
+        if kind == "git":
+            repo = os.path.join(out_dir, f"repo{i:04d}")
+            write_git_repo(repo, files)
+            entries.append(f"{repo}::HEAD")
+            continue
+        prefix = {"tar": "package/", "tar.gz": f"repo{i:04d}-1.0/",
+                  "zip": ""}[kind]
+        arch = os.path.join(out_dir, f"repo{i:04d}.{kind}")
+        if kind == "zip":
+            with zipfile.ZipFile(arch, "w", zipfile.ZIP_DEFLATED) as zf:
+                for name, data in files:
+                    zf.writestr(zipfile.ZipInfo(
+                        prefix + name, (2020, 9, 13, 12, 26, 40)), data)
+        else:
+            with tarfile.open(arch, "w:gz" if kind == "tar.gz" else "w") as tf:
+                for name, data in files:
+                    info = tarfile.TarInfo(prefix + name)
+                    info.size, info.mtime = len(data), ARCHIVE_MTIME
+                    tf.addfile(info, io.BytesIO(data))
+        entries.append(f"{arch}::*")
+        if i % 40 == 0:
+            entries.append(f"{arch}::{prefix}{files[0][0]}")
+    entries.append(paths[-1])  # the path that cannot be read
+    manifest = os.path.join(root, "containers.txt")
+    with open(manifest, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(entries) + "\n")
+    ex = expand_manifest(entries)
+    try:
+        n_rows = ex.total
+    finally:
+        ex.close()
+    return manifest, n_rows, kinds
+
+
+def containers(np, torch, seed: int, root: str, launches: dict) -> None:
+    """Phase 7: `batch-detect` over container entries at default flags.
+    The mixed crawl manifest's repositories packed as tars, compressed
+    tars, zips and git checkouts expand to ~10,000 member rows, run
+    under --mode auto --closest 3 --attribution and --mode license, each
+    against --device cpu, --pipeline-depth 1 --workers 1 and
+    --featurize-procs 4 (the JSONL and OUT.containers.jsonl byte for
+    byte), with the resume drill (both sha256s)."""
+    t0 = time.perf_counter()
+    manifest, n_rows, kinds = write_container_manifest(
+        np, os.path.join(root, "containers"), seed)
+    log(f"containers: {sum(kinds.values())} containers {json.dumps(kinds)}, "
+        f"{n_rows} expanded rows, written in {time.perf_counter() - t0:.1f} s; "
+        f"{smi('name,power.limit')}")
+    for label, flags, kernel in (
+            ("auto-closest3-attribution",
+             ["--mode", "auto", "--closest", str(CLOSEST), "--attribution"],
+             "topk_fused"),
+            ("license", ["--mode", "license"], "best_match_fused")):
+        def one(name, *extra, label=label, flags=flags):
+            out = os.path.join(root, f"containers.{label}.{name}.jsonl")
+            argv = ["batch-detect", manifest, "--output", out, *flags,
+                    *extra]
+            data, stats, _s, got = drive(
+                torch, f"containers {label} {name}", argv, n_rows)
+            for k, c in got.items():
+                launches["vendored", k] = launches.get(("vendored", k), 0) + c
+            with open(out + ".containers.jsonl", "rb") as fh:
+                verdicts = fh.read()
+            return out, argv, data, verdicts, stats, got
+
+        out, argv, full, verdicts, stats, got = one("default")
+        if not got[kernel]:
+            raise AssertionError(f"containers {label}: {kernel} never "
+                                 "launched")
+        stages = stats["stage_seconds"]
+        n_verdicts = verdicts.count(b"\n")
+        log(f"containers {label}: {n_rows} expanded rows, "
+            f"{n_rows / stages['elapsed']:.1f} rows/s, read "
+            f"{stages.get('read', 0.0):.4f} s, containers stage "
+            f"{stages.get('containers', 0.0):.4f} s, "
+            f"{n_verdicts} container rows")
+        for twin, extra in (("cpu", ["--device", "cpu"]),
+                            ("depth1-workers1",
+                             ["--pipeline-depth", "1", "--workers", "1"]),
+                            ("procs4", ["--featurize-procs", "4"])):
+            _o, _a, data, twin_verdicts, _st, _g = one(twin, *extra)
+            if data != full or twin_verdicts != verdicts:
+                raise AssertionError(f"containers {label}: the {twin} JSONL "
+                                     "or container verdicts differ")
+        log(f"containers {label}: JSONL and .containers.jsonl byte-identical "
+            "to --device cpu, --pipeline-depth 1 --workers 1 and "
+            "--featurize-procs 4")
+        got = resume_drill(torch, f"containers {label}", out, argv, full,
+                           n_rows, derived=(".containers.jsonl",))
+        for k, c in got.items():
+            launches["vendored", k] = launches.get(("vendored", k), 0) + c
 
 
 def main() -> int:

@@ -10,8 +10,10 @@
     python -m licensee_tpu_torch.cli.main corpus-build \\
         [--corpus SRC] --output ART.npz | --inspect ART.npz
 
-`batch-detect` classifies a manifest of loose files (one path per line)
-and writes JSONL rows byte-identical to the JAX package's
+`batch-detect` classifies a manifest of loose files and local tar, zip
+and git containers (one entry per line: ``path``, ``archive.tar::member``,
+``archive.zip::*``, ``repo.git::HEAD``) and writes JSONL rows, and for
+containers ``OUTPUT.containers.jsonl``, byte-identical to the JAX package's
 `licensee-tpu batch-detect`, through the same pipeline: featurize worker
 threads (or processes), coalesced device chunks, an overlap pipeline of
 device groups in flight, a writer thread, and resume of a partial
@@ -19,9 +21,9 @@ device groups in flight, a writer thread, and resume of a partial
 device unless ``--device cpu`` asks for the plain PyTorch scorers on the
 CPU.  `corpus-build` writes a corpus artifact in the JAX package's
 format (`corpus/artifact.py`).  Printing rows without ``--output``,
-``--stripes``, ``--mesh``, ``--device-lanes``, ``--progress``,
-containers and the other verbs of `licensee_tpu/cli/main.py` wait for
-later slices (ROADMAP A).
+``--stripes``, ``--mesh``, ``--device-lanes``, ``--progress``, remote
+(http(s)) containers, which a manifest may not name, and the other verbs
+of `licensee_tpu/cli/main.py` wait for later slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -86,7 +88,8 @@ def cmd_batch_detect(args) -> int:
         print(f"error: cannot read manifest: {exc}", file=sys.stderr)
         return 1
     except (ValueError, RuntimeError) as exc:
-        # a bad option or corpus, or no CUDA device without --device cpu
+        # a bad option or corpus, a torn or remote container, or no CUDA
+        # device without --device cpu
         print(f"error: {exc}", file=sys.stderr)
         return 1
     from licensee_tpu_torch.projects.batch_project import ResumeConfigError
@@ -97,10 +100,12 @@ def cmd_batch_detect(args) -> int:
         print(f"error: batch run I/O failure: {exc}", file=sys.stderr)
         return 1
     except ResumeConfigError as exc:
-        # a resume whose mode/corpus/threshold differs from the run that
-        # wrote the output (the .meta.json sidecar)
+        # a resume whose mode/corpus/threshold/containers differ from the
+        # run that wrote the output (the .meta.json sidecar)
         print(f"error: {exc}", file=sys.stderr)
         return 1
+    finally:
+        project.close()
     if args.stats:
         print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
@@ -175,7 +180,13 @@ def build_parser() -> argparse.ArgumentParser:
     batch = sub.add_parser(
         "batch-detect", help="Classify a manifest of files on the GPU"
     )
-    batch.add_argument("manifest", help="File with one path per line")
+    batch.add_argument(
+        "manifest",
+        help=(
+            "File with one entry per line: a path, or a local container "
+            "member (archive.tar::LICENSE, archive.zip::*, repo.git::HEAD)"
+        ),
+    )
     batch.add_argument(
         "--output", required=True,
         help="Write the JSONL rows here (resumable)",

@@ -230,6 +230,14 @@ class License(NormalizedContent):
         return cached
 
     @property
+    def gpl_q(self) -> bool:
+        return self.key in ("gpl-2.0", "gpl-3.0")
+
+    @property
+    def lgpl_q(self) -> bool:
+        return self.key in ("lgpl-2.1", "lgpl-3.0")
+
+    @property
     def creative_commons_q(self) -> bool:
         return self.key.startswith("cc-")
 

@@ -12,12 +12,16 @@
 //   excluded = (cc_flag[t] && cc_fp[b]) || !valid[t]
 //   num = excluded ? -1 : overlap;  den = (excluded || denom <= 0) ? 1 : denom
 //
-// One mainloop, two epilogues chosen at compile time:
+// One mainloop, three epilogues chosen at compile time:
 //
 // * planes (`dice_score_fused`): (num, den) int32[B, T];
 // * best (`dice_best_fused`): per blob the first template of greatest
 //   num/den, (idx, num, den) int32[B]; the [B, T] planes never reach
-//   device memory.
+//   device memory;
+// * top-k (`dice_topk_fused`): per blob the exact top k <= 8 candidates,
+//   (idx, num, den) int32[B, k], as k rounds of the masked first-max
+//   give them (`topk_candidates`, licensee_tpu/kernels/dice_xla.py);
+//   again without the planes, in one launch.
 //
 // What bounds it on an H100 SXM (132 SMs at up to 1.98 GHz, 3.35 TB/s).
 // Per SM and clock the CUDA cores issue 16 population counts and 64
@@ -76,6 +80,34 @@
 // to finish (an atomic ticket per tile, after __threadfence) merges
 // them and resets its ticket to 0 for the next launch: one launch, no
 // memset, no second kernel.
+//
+// The top-k.  Its rounds reduce to a sort on the planes this kernel
+// makes, whose domain is: a real entry has num >= 0 and den >= 1, an
+// excluded one is exactly (-1, 1).  Then round r gives the r-th real
+// entry in (value desc, index asc) order while there is one, and
+// (0, -1, 1) after: by then every template is excluded or masked, all at
+// (-1, 1), and the first-max of equals is template 0
+// (tests/test_torch_topk.py holds this rule against the rounds).  So
+// each lane keeps, for each of its two rows, a sorted list of the best
+// KM real entries it scores (KM = 4 or 8 >= k, registers).  After each
+// chunk's scores, its 8 candidates per row (two columns of each of the
+// chunk's four n8 tiles; an excluded pair or a column past the chunk is
+// an empty slot, (0, -1, 1), which loses to every real entry and so is
+// the pad the rounds give) go through a sorting network (4 of 8:
+// Batcher's 5-exchange sorts of both halves and one merge; 8 of 8: the
+// 19-exchange sort) and their best KM merge into the list: branch-free,
+// so no lane waits on another's inserts (with an insert per candidate,
+// one lane's insert stalled its warp).  Merging two sorted lists keeps
+// their top KM: the elementwise better of one and the other reversed is
+// bitonic and holds them, and the half-cleaners sort it.  The quad's
+// lanes merge their lists by shuffles.  Split blocks write their lists'
+// first k entries to scratch [3][splits][B][k]; the last block of a tile
+// (the ticket protocol above) merges the splits' lists the same way, each
+// split's list loaded while the one before merges.  `topk_fused_schedule`
+// keeps the template slices at 32 or more: every split costs a list
+// merge.  KM = 8 takes 210 registers a thread (ptxas, no spills), so k
+// stops at 8 (`K_FUSED_MAX`).  A plane outside that domain never comes
+// from this kernel's algebra.
 
 #include <climits>
 #include <cstdint>
@@ -90,6 +122,9 @@ constexpr int K1_TC = 32;             // most templates per chunk
 constexpr int K1_NT = K1_TC / 8;      // n8 tiles per chunk
 constexpr int META_COLS = 8;          // int32 meta row, as dice_pallas.pack_corpus
 constexpr int SMEM_CAP = 227 * 1024;
+constexpr int K_FUSED_MAX = 8;        // the top-k epilogue's largest k
+
+enum Epilogue { kPlanes, kBest, kTopK };
 
 enum { N_WF, N_FIELDSET, FIELD_COUNT, ALT_COUNT, LENGTH, CC_FLAG, VALID };
 
@@ -183,6 +218,89 @@ __device__ __forceinline__ Best shfl_best(const Best& v, int mask) {
           __shfl_xor_sync(0xffffffffu, v.den, mask)};
 }
 
+// the top-k's empty slot: loses to every real entry, and is the pad
+__device__ __forceinline__ Best empty_slot() { return {0, -1, 1}; }
+
+// compare-exchange: a before b afterwards
+__device__ __forceinline__ void order(Best& a, Best& b) {
+  if (better(b, a)) {
+    const Best o = a;
+    a = b;
+    b = o;
+  }
+}
+
+// Batcher's odd-even merge sort networks, best first: 4 entries from O
+// in 5 compare-exchanges, 8 in 19
+template <int O, int N>
+__device__ __forceinline__ void sort4(Best (&a)[N]) {
+  order(a[O], a[O + 1]);
+  order(a[O + 2], a[O + 3]);
+  order(a[O], a[O + 2]);
+  order(a[O + 1], a[O + 3]);
+  order(a[O + 1], a[O + 2]);
+}
+
+template <int N>
+__device__ __forceinline__ void sort8(Best (&a)[N]) {
+  sort4<0>(a);
+  sort4<4>(a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) order(a[i], a[i + 4]);
+  order(a[2], a[4]);
+  order(a[3], a[5]);
+  order(a[1], a[2]);
+  order(a[3], a[4]);
+  order(a[5], a[6]);
+}
+
+// l = the top KM of l and o, both sorted best first, given o reversed
+// (rev[i] = o[KM - 1 - i]): their elementwise better is bitonic and
+// holds the top KM; the half-cleaners sort it
+template <int KM>
+__device__ __forceinline__ void merge_reversed(Best (&l)[KM],
+                                               const Best (&rev)[KM]) {
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    if (better(rev[i], l[i])) l[i] = rev[i];
+  }
+#pragma unroll
+  for (int j = KM / 2; j > 0; j >>= 1) {
+#pragma unroll
+    for (int i = 0; i < KM; ++i) {
+      if ((i & j) == 0) order(l[i], l[i + j]);
+    }
+  }
+}
+
+// l = the top KM of l and a chunk's N candidates (empty slots where a
+// pair is excluded or past the chunk): the chunk's best KM by a
+// network, reversed, merged in.  KM = 4 of 8: both halves sorted, their
+// top 4 by one merge; KM = 8 of 8: the 19-exchange sort
+template <int KM, int N>
+__device__ __forceinline__ void merge_chunk(Best (&l)[KM], Best (&c)[N]) {
+  static_assert(N == 8 && (KM == 4 || KM == 8), "chunks of 8 candidates");
+  Best rev[KM];
+  if constexpr (KM == 4) {
+    sort4<0>(c);
+    sort4<4>(c);
+    Best h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = c[i];
+    Best hi[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) hi[i] = c[7 - i];
+    merge_reversed<4>(h, hi);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) rev[i] = h[3 - i];
+  } else {
+    sort8(c);
+#pragma unroll
+    for (int i = 0; i < KM; ++i) rev[i] = c[KM - 1 - i];
+  }
+  merge_reversed<KM>(l, rev);
+}
+
 struct Params {
   const int* meta;
   const uint32_t* tpl;
@@ -190,15 +308,110 @@ struct Params {
   const int* n_words;
   const int* lengths;
   const unsigned char* cc_fp;
-  int* out0;     // planes: num; best: idx
-  int* out1;     // planes: den; best: num
-  int* out2;     // best: den
-  int* partial;  // best with splits > 1: [3][splits][B]
-  int* tickets;  // best with splits > 1: one per blob tile, zero between launches
+  int* out0;     // planes: num; best: idx [B]; top-k: idx [B][k]
+  int* out1;     // planes: den; best: num; top-k: num
+  int* out2;     // best: den; top-k: den
+  int* partial;  // splits > 1: best [3][splits][B], top-k [3][splits][B][k]
+  int* tickets;  // splits > 1: one per blob tile, zero between launches
   int B, T, W, Wp, per_split, tc;
+  int k;         // top-k: the candidates per blob, 1 <= k <= KM
 };
 
-template <bool kBest>
+// writes the first k entries of a list sorted best first to [..][k] rows
+template <int KM>
+__device__ __forceinline__ void store_list(const Best (&l)[KM], int* idx,
+                                           int* num, int* den, size_t at,
+                                           int k) {
+#pragma unroll
+  for (int i = 0; i < KM; ++i) {
+    if (i < k) {
+      idx[at + i] = l[i].idx;
+      num[at + i] = l[i].num;
+      den[at + i] = l[i].den;
+    }
+  }
+}
+
+// the top-k epilogue, after the mainloop: the quad's lanes hold lists of
+// disjoint columns of the same two rows
+template <int KM>
+__device__ __forceinline__ void topk_epilogue(const Params& p,
+                                              Best (&top)[2][KM], int b0,
+                                              int rows, int warp, int g,
+                                              int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+#pragma unroll
+    for (int mask = 1; mask <= 2; mask <<= 1) {
+      Best rev[KM];
+#pragma unroll
+      for (int i = 0; i < KM; ++i) rev[i] = shfl_best(top[r][KM - 1 - i], mask);
+      merge_reversed<KM>(top[r], rev);
+    }
+  }
+  const int splits = gridDim.x;
+  if (t == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = b0 + warp * 16 + g + 8 * r;
+      if (row >= p.B) continue;
+      if (splits == 1) {
+        store_list<KM>(top[r], p.out0, p.out1, p.out2,
+                       static_cast<size_t>(row) * p.k, p.k);
+      } else {
+        const size_t plane = static_cast<size_t>(splits) * p.B * p.k;
+        store_list<KM>(top[r], p.partial, p.partial + plane,
+                       p.partial + 2 * plane,
+                       (static_cast<size_t>(blockIdx.x) * p.B + row) * p.k,
+                       p.k);
+      }
+    }
+  }
+  if (splits == 1) return;
+
+  __threadfence();  // this block's lists are visible before its ticket
+  __syncthreads();
+  __shared__ bool s_last_topk;
+  if (threadIdx.x == 0) {
+    s_last_topk = atomicAdd(p.tickets + blockIdx.y, 1) == splits - 1;
+  }
+  __syncthreads();
+  if (!s_last_topk) return;
+  __threadfence();  // every other block's lists are visible to this one
+  const size_t plane = static_cast<size_t>(splits) * p.B * p.k;
+  for (int i = threadIdx.x; i < rows; i += K1_THREADS) {
+    const int row = b0 + i;
+    Best acc[KM];
+#pragma unroll
+    for (int j = 0; j < KM; ++j) acc[j] = empty_slot();
+    auto load = [&](int s, Best (&rev)[KM]) {
+      const size_t at = (static_cast<size_t>(s) * p.B + row) * p.k;
+#pragma unroll
+      for (int j = 0; j < KM; ++j) {
+        const int e = KM - 1 - j;
+        rev[j] = e < p.k ? Best{__ldcg(p.partial + at + e),
+                                __ldcg(p.partial + plane + at + e),
+                                __ldcg(p.partial + 2 * plane + at + e)}
+                         : empty_slot();
+      }
+    };
+    Best nxt[KM];
+    load(0, nxt);
+    for (int s = 0; s < splits; ++s) {
+      Best rev[KM];
+#pragma unroll
+      for (int j = 0; j < KM; ++j) rev[j] = nxt[j];
+      if (s + 1 < splits) load(s + 1, nxt);
+      merge_reversed<KM>(acc, rev);
+    }
+    store_list<KM>(acc, p.out0, p.out1, p.out2,
+                   static_cast<size_t>(row) * p.k, p.k);
+  }
+  if (threadIdx.x == 0) p.tickets[blockIdx.y] = 0;
+}
+
+// KM: the top-k's list length (1 for the other epilogues)
+template <int kEpi, int KM>
 __global__ void __launch_bounds__(K1_THREADS)
     dice_k1_kernel(const Params p) {
   extern __shared__ uint4 smem[];  // uint4 keeps the 16-byte alignment
@@ -255,11 +468,17 @@ __global__ void __launch_bounds__(K1_THREADS)
   auto row_of = [&](int r) { return b0 + warp * 16 + g + 8 * r; };
   BlobConst bc[2];
   Best best[2];
+  Best top[2][KM];
+  // the top-k's candidates of one chunk, per row: this lane's two columns
+  // of each of the chunk's n8 tiles
+  Best cand[2][2 * K1_NT];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = min(row_of(r), p.B - 1);
     bc[r] = {p.n_words[row], p.lengths[row], p.cc_fp[row] ? 3 : 1};
     best[r] = {INT_MAX, -2, 1};  // below any pair
+#pragma unroll
+    for (int i = 0; i < KM; ++i) top[r][i] = empty_slot();
   }
 
   const uint32_t* a_lo = s_blob + (warp * 16 + g) * p.Wp + 2 * t;
@@ -302,6 +521,13 @@ __global__ void __launch_bounds__(K1_THREADS)
     }
     __syncthreads();  // s_const is written; the ring slot may be refilled
 
+    if constexpr (kEpi == kTopK) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int i = 0; i < 2 * K1_NT; ++i) cand[r][i] = empty_slot();
+      }
+    }
 #pragma unroll
     for (int j = 0; j < K1_NT; ++j) {
       if (8 * j >= nt) continue;
@@ -315,7 +541,7 @@ __global__ void __launch_bounds__(K1_THREADS)
         int num0, den0, num1, den1;
         score(acc[j][2 * r], m0, bc[r], num0, den0);
         score(acc[j][2 * r + 1], m1, bc[r], num1, den1);
-        if (kBest) {
+        if constexpr (kEpi == kBest) {
           // columns arrive in increasing template order: only a strictly
           // greater score replaces the first-max so far
           if (static_cast<long long>(num0) * best[r].den >
@@ -326,6 +552,10 @@ __global__ void __launch_bounds__(K1_THREADS)
                          static_cast<long long>(best[r].num) * den1) {
             best[r] = {t0 + col + 1, num1, den1};
           }
+        } else if constexpr (kEpi == kTopK) {
+          // real entries only: an excluded pair is (-1, 1), the pad
+          if (num0 >= 0) cand[r][2 * j] = {t0 + col, num0, den0};
+          if (two && num1 >= 0) cand[r][2 * j + 1] = {t0 + col + 1, num1, den1};
         } else {
           const int row = row_of(r);
           if (row >= p.B) continue;
@@ -344,8 +574,17 @@ __global__ void __launch_bounds__(K1_THREADS)
         }
       }
     }
+    if constexpr (kEpi == kTopK) {
+      // branch-free: no lane waits on another's insertions
+#pragma unroll
+      for (int r = 0; r < 2; ++r) merge_chunk<KM, 2 * K1_NT>(top[r], cand[r]);
+    }
   }
-  if (!kBest) return;
+  if constexpr (kEpi == kPlanes) return;
+  if constexpr (kEpi == kTopK) {
+    topk_epilogue<KM>(p, top, b0, rows, warp, g, t);
+    return;
+  }
 
   // the quad's four lanes hold disjoint columns of the same rows
 #pragma unroll
@@ -410,27 +649,29 @@ __global__ void __launch_bounds__(K1_THREADS)
   if (threadIdx.x == 0) p.tickets[blockIdx.y] = 0;
 }
 
-template <bool kBest>
+template <int kEpi, int KM>
 int launch(const Params& p, cudaStream_t stream) {
   if (p.B <= 0 || p.T <= 0 || p.W <= 0 || p.W % 4 || p.per_split < 8 ||
-      p.per_split % 8 || p.tc < 8 || p.tc > K1_TC || p.tc % 8)
+      p.per_split % 8 || p.tc < 8 || p.tc > K1_TC || p.tc % 8 ||
+      (kEpi == kTopK && (p.k < 1 || p.k > KM)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (p.B + K1_BM - 1) / K1_BM;
   const int splits = (p.T + p.per_split - 1) / p.per_split;
   if (n_tiles > 65535 || splits > 65535 ||
-      (kBest && splits > 1 && (p.partial == nullptr || p.tickets == nullptr)))
+      (kEpi != kPlanes && splits > 1 &&
+       (p.partial == nullptr || p.tickets == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(p.Wp, p.tc);
   if (smem > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
   // on every launch: the limit belongs to the current device's context
   const cudaError_t attr = cudaFuncSetAttribute(
-      dice_k1_kernel<kBest>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dice_k1_kernel<kEpi, KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   // template slices fastest: the blocks that run together share one blob
   // tile, read once from device memory, and the merging block comes soon
   const dim3 grid(splits, n_tiles);
-  dice_k1_kernel<kBest><<<grid, K1_THREADS, smem, stream>>>(p);
+  dice_k1_kernel<kEpi, KM><<<grid, K1_THREADS, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -474,7 +715,7 @@ extern "C" int dice_score_fused(const void* meta, const void* tpl,
                          per_split, tc);
   p.out0 = static_cast<int*>(num);
   p.out1 = static_cast<int*>(den);
-  return launch<false>(p, static_cast<cudaStream_t>(stream));
+  return launch<kPlanes, 1>(p, static_cast<cudaStream_t>(stream));
 }
 
 // (idx, num, den) int32[B], the exact first-max over templates.  With
@@ -493,5 +734,30 @@ extern "C" int dice_best_fused(const void* meta, const void* tpl,
   p.out2 = static_cast<int*>(den);
   p.partial = static_cast<int*>(partial);
   p.tickets = static_cast<int*>(tickets);
-  return launch<true>(p, static_cast<cudaStream_t>(stream));
+  return launch<kBest, 1>(p, static_cast<cudaStream_t>(stream));
+}
+
+// (idx, num, den) int32[B][k] each, the exact top k (1 <= k <=
+// K_FUSED_MAX) candidates per blob, as k rounds of the masked first-max
+// give them.  With more than one split, `partial` is int32 scratch of
+// 3 * splits * B * k and `tickets` as for dice_best_fused.
+extern "C" int dice_topk_fused(const void* meta, const void* tpl,
+                               const void* file, const void* n_words,
+                               const void* lengths, const void* cc_fp,
+                               void* idx, void* num, void* den,
+                               void* partial, void* tickets, int B, int T,
+                               int W, int per_split, int tc, int k,
+                               void* stream) {
+  Params p = make_params(meta, tpl, file, n_words, lengths, cc_fp, B, T, W,
+                         per_split, tc);
+  p.out0 = static_cast<int*>(idx);
+  p.out1 = static_cast<int*>(num);
+  p.out2 = static_cast<int*>(den);
+  p.partial = static_cast<int*>(partial);
+  p.tickets = static_cast<int*>(tickets);
+  p.k = k;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k >= 1 && k <= 4) return launch<kTopK, 4>(p, st);
+  if (k > 4 && k <= K_FUSED_MAX) return launch<kTopK, K_FUSED_MAX>(p, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,9 +1,15 @@
-"""Blob-source markers shared by the read paths.
+"""Container ingestion for the batch path: tarballs, zips and git
+repositories as blob sources, read without extracting to disk.
 
-The port's copy of the part of `licensee_tpu/ingest/__init__.py` the
-loose-file batch path needs: the skip-not-truncate read contract.  The
-container sources (tar / zip / git / remote) wait for a later slice
-(ROADMAP A).
+The port's counterpart of `licensee_tpu/ingest/`.  Manifest entries
+address containers with a ``::`` separator (``archive.tar::LICENSE``,
+``archive.tar::*``, ``repo.git::HEAD``); ``sources.py`` expands them and
+reads their members, ``verdict.py`` derives the container-level verdict
+rows.  Remote (http(s)) containers wait for a later slice (ROADMAP A):
+a manifest that names one is refused.
+
+This ``__init__`` stays import-light: ``serve/featurize.py`` imports
+:class:`SkippedBlob` for the skip-not-truncate read contract.
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ host sanitizes each blob, short-circuits it through the Copyright and
 Exact pre-filters, and featurizes the rest into packed bitsets; the
 device scores every (blob, template) pair with K1 or K2
 (`kernels/dice_cuda.py`) and picks the exact int64 first-max, or with
-``closest`` the exact top-k (`dice_cuda.topk_exact`); the host finishes
+``closest`` the exact top-k (`dice_cuda.topk_fused` in K1's epilogue,
+`dice_cuda.topk_exact` after K2); the host finishes
 the score in float64 and applies the threshold.
 
 The modes are the JAX package's: ``license``; ``readme`` (each blob cut
@@ -898,6 +899,10 @@ class BatchClassifier:
         shapes dispatched and ``per_shape`` the same split per shape."""
         with self._dispatch_lock:
             out = dict(self._dispatch_prof)
+            if self._scorer is not None:
+                # the scorer's chain of kernels (top-1, or the top-k route
+                # chosen by k)
+                out["scorer"] = self._scorer.route
             out["shapes"] = sorted(self._dispatched_shapes)
             out["per_shape"] = {
                 b: {

@@ -39,8 +39,11 @@ SIGNATURES = {
     "dice_best_fused": [_P] * 11 + [_I] * 5 + [_P],
     # tpl, file, out, B, T, W, t_pad, bn, splits, stream
     "dice_overlap_mma": [_P] * 3 + [_I] * 6 + [_P],
-    # num, den, out, B, T, k, warps, stream
-    "dice_topk_exact": [_P] * 3 + [_I] * 4 + [_P],
+    # meta, tpl, file, n_words, lengths, cc_fp, idx, num, den, partial,
+    # tickets, B, T, W, per_split, tc, k, stream
+    "dice_topk_fused": [_P] * 11 + [_I] * 6 + [_P],
+    # num, den, out, B, T, k, lanes, P, R, stream
+    "dice_topk_exact": [_P] * 3 + [_I] * 6 + [_P],
 }
 
 

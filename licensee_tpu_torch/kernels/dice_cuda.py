@@ -8,8 +8,9 @@ TPU kernels become CUDA C++ in `licensee_tpu_torch/csrc/`:
   single-bit tensor cores and the exact int32 score algebra in one
   pass.  `best_match_fused`, what the batch path runs, also fuses the
   exact first-max (`dice_xla._argmax_exact`) and gives (idx, num, den)
-  int32[B]; `score_pairs_fused` gives the (num, den) int32[B, T]
-  planes.
+  int32[B]; `topk_fused`, what the ``--closest`` path runs, fuses K4's
+  top-k (k <= `K_FUSED_MAX`) and gives (idx, num, den) int32[B, k];
+  `score_pairs_fused` gives the (num, den) int32[B, T] planes.
 * K2 `overlap_pairs_mma` (csrc/dice_overlap_mma.cu) replaces
   `_make_mxu_kernel` behind `_overlap_mxu_padded`: the packed blob bits
   spread into wgmma's register operand on chip and contracted against
@@ -18,8 +19,11 @@ TPU kernels become CUDA C++ in `licensee_tpu_torch/csrc/`:
 * K4's top-k `topk_exact` (csrc/dice_topk.cu) replaces the XLA graph
   `dice_xla.topk_candidates`: k rounds of the exact first-max over the
   (num, den) planes, each winner masked to (-1, 1), giving (idx, num,
-  den) int32[B, k]; the ``--closest`` path runs it after K1's planes or
-  after K2 and the score algebra.
+  den) int32[B, k], in one pass over each row (sorting networks into a
+  sorted list per lane for small k, a bitonic sort in registers,
+  shuffles and shared memory for large k); the
+  ``--closest`` path runs it after K2 and the score algebra, and after
+  K1's planes where k is above `K_FUSED_MAX`.
 
 Each wrapper runs the kernel for CUDA tensors and its plain PyTorch
 version (built on `kernels/dice_ref.py`) for CPU tensors, and counts its
@@ -40,7 +44,7 @@ from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
 # kernel name -> launches since the last reset; a wrapper adds one
 # exactly where it launches its kernel
 LAUNCHES = {"score_pairs_fused": 0, "best_match_fused": 0,
-            "overlap_pairs_mma": 0, "topk_exact": 0}
+            "topk_fused": 0, "overlap_pairs_mma": 0, "topk_exact": 0}
 
 # meta-table columns of K1 (int32[T, 8], one row per template), as
 # `dice_pallas.pack_corpus` lays them out
@@ -65,12 +69,23 @@ MMA_STAGE_WORDS = 4
 MMA_BLOCK_B = 128  # blob rows per block
 MMA_TILE_N = (16, 48, 64, 128, 208)  # the compiled template tiles
 
-# K4's top-k, mirrored from csrc/dice_topk.cu: one warp per blob row,
-# the row's (num, den) in shared memory, 8 bytes a template; a block
-# takes as many rows as fit 48 KB, up to TOPK_MAX_WARPS, and at least one
-# (up to the 227 KB a block can have)
-TOPK_MAX_WARPS = 8
-TOPK_SMEM = 48 * 1024
+# K1's top-k epilogue (csrc/dice_score_fused.cu): lists of at most 8
+# entries per lane and row in registers (ptxas: 210 registers a thread at
+# 8, no spills; 16 would not fit)
+K_FUSED_MAX = 8
+
+# K4's top-k, mirrored from csrc/dice_topk.cu: at k <= TOPK_LIST_MAX a
+# group of lanes per row (`topk_schedule`: enough threads to fill the card
+# at small B, TOPK_LANE_ENTRIES entries a lane or more); above, a bitonic
+# sort of each row padded to a power of two P, TOPK_SORT_LANE_ENTRIES
+# entries a thread in registers, TOPK_SORT_ENTRIES entries a block where
+# rows are short, at most TOPK_SORT_MAX entries a row
+TOPK_LIST_MAX = 16
+TOPK_LANE_ENTRIES = 4
+TOPK_THREADS = 1 << 16  # threads the lane groups aim for
+TOPK_SORT_LANE_ENTRIES = 8
+TOPK_SORT_ENTRIES = 1024
+TOPK_SORT_MAX = 8 * 1024
 
 
 def reset_launches() -> None:
@@ -178,20 +193,22 @@ def k1_smem_bytes(W: int, tc: int) -> int:
 
 
 @functools.lru_cache(maxsize=256)
-def fused_schedule(B: int, T: int, W: int, n_sms: int):
+def fused_schedule(B: int, T: int, W: int, n_sms: int, min_split: int = 8):
     """K1's launch shape: (splits, per_split, tc).
 
     Where the 64-row blob tiles give fewer than `K1_BLOCKS_PER_SM`
     blocks per SM, the templates are split over that many more blocks
-    per tile, in slices of ``per_split`` (whole n8 tiles, none empty);
-    the main path's B=4096 at T=47 runs 64 tiles x 3 slices of 16.
-    Each block streams its slice in chunks of ``tc`` templates (at most
-    32, and less where the shared memory would not hold 32).  Raises
-    where W is too wide for any chunk."""
+    per tile, in slices of ``per_split`` (whole n8 tiles, none empty,
+    and about ``min_split`` templates or more); the main path's B=4096
+    at T=47 runs 64 tiles x 3 slices of 16.  Each block streams its
+    slice in chunks of ``tc`` templates (at most 32, and less where the
+    shared memory would not hold 32).  Raises where W is too wide for
+    any chunk."""
     n8 = -(-max(T, 1) // 8)
     tiles = -(-max(B, 1) // K1_BM)
     target = K1_BLOCKS_PER_SM * n_sms
     splits = min(n8, -(-target // tiles)) if tiles < target else 1
+    splits = min(splits, -(-max(T, 1) // min_split))
     per_split = 8 * -(-n8 // splits)
     tc = min(K1_TC, per_split)
     while tc > 8 and k1_smem_bytes(W, tc) > K1_SMEM_CAP:
@@ -412,23 +429,45 @@ def topk_exact_plain(num, den, k: int):
     return dice_ref.topk_candidates(num, den, k)
 
 
-def topk_warps(T: int) -> int:
-    """Rows (warps) per block of the top-k kernel at T templates; raises
-    where one row does not fit a block's shared memory."""
-    if 8 * T > K1_SMEM_CAP:
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def _pow2_at_most(n: int) -> int:
+    return 1 << max(0, int(n).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def topk_schedule(B: int, T: int, k: int):
+    """`topk_exact`'s design for B rows of T templates and k candidates:
+    (lanes, P, R).  At k <= TOPK_LIST_MAX, ``lanes`` > 0 lanes per row: a
+    power of two, as many as TOPK_THREADS threads over B rows ask for
+    but no more than leave TOPK_LANE_ENTRIES entries a lane, at least 2
+    (where T allows) and at most 32 (B=4096: 8 at T=47, 16 at T=608;
+    B=262144: 2 at both), with P = R = 0.  Above it, ``lanes`` = 0 and a
+    bitonic sort of rows padded to P entries (the power of two >= T, at
+    least 8), R rows a block.  Raises where a row would need more than a
+    block's 1024 threads."""
+    if k <= TOPK_LIST_MAX:
+        want = _pow2_at_least(-(-TOPK_THREADS // max(B, 1)))
+        most = _pow2_at_most(max(T, 1) // TOPK_LANE_ENTRIES or 1)
+        least = 2 if T >= 2 * TOPK_LANE_ENTRIES else 1
+        return min(32, max(least, min(want, most))), 0, 0
+    P = max(TOPK_SORT_LANE_ENTRIES, _pow2_at_least(T))
+    if P > TOPK_SORT_MAX:
         raise ValueError(
-            f"topk_exact holds a row in shared memory: T={T} templates "
-            "is too wide"
+            f"topk_exact sorts a row in one block at k > {TOPK_LIST_MAX}: "
+            f"T={T} templates is too wide (at most {TOPK_SORT_MAX})"
         )
-    return max(1, min(TOPK_MAX_WARPS, TOPK_SMEM // (8 * max(T, 1))))
+    return 0, P, max(1, TOPK_SORT_ENTRIES // P)
 
 
 def topk_exact(num, den, k: int):
     """The exact top-k (idx, num, den) int32[B, k] of each row of the
-    (num, den) int32[B, T] planes (every den >= 1): k rounds of the
-    first-max, each winner masked to (-1, 1); column 0 is the exact
-    top-1.  Takes what `score_pairs_fused` (or K2 and
-    `dice_ref.finish_scores`) gives."""
+    (num, den) int32[B, T] planes, as k rounds of the first-max give it,
+    each winner masked to (-1, 1); column 0 is the exact top-1.  Takes
+    what `score_pairs_fused` (or K2 and `dice_ref.finish_scores`) gives:
+    real entries num >= 0, den >= 1, excluded ones exactly (-1, 1)."""
     if num.device.type != "cuda":
         return topk_exact_plain(num, den, k)
     B, T = num.shape
@@ -441,14 +480,72 @@ def topk_exact(num, den, k: int):
     buf = torch.empty((3, B, k), dtype=torch.int32, device=dev)
     if B == 0 or k == 0:
         return buf.unbind(0)
+    lanes, P, R = topk_schedule(B, T, k)
     err = _launch(
         dev, _lib().dice_topk_exact,
-        num.data_ptr(), den.data_ptr(), buf.data_ptr(), B, T, k,
-        topk_warps(T),
+        num.data_ptr(), den.data_ptr(), buf.data_ptr(), B, T, k, lanes, P, R,
     )
     LAUNCHES["topk_exact"] += 1
     _raise_on(err, "topk_exact")
     return buf.unbind(0)
+
+
+def topk_fused_schedule(B: int, T: int, W: int, n_sms: int):
+    """`topk_fused`'s launch shape: K1's (`fused_schedule`), its template
+    slices at least a whole chunk of `K1_TC`: each split costs a list
+    merge across blocks, which a slice of 8 or 16 templates does not
+    repay (B=4096 at T=47 runs 2 slices of 24, not 3 of 16)."""
+    return fused_schedule(B, T, W, n_sms, min_split=K1_TC)
+
+
+def topk_fused_plain(meta, tpl_bits, file_bits, n_words, lengths, cc_fp,
+                     k: int):
+    """K1's fused top-k in plain PyTorch: the planes, then the k rounds
+    (`dice_ref.topk_candidates`)."""
+    return dice_ref.topk_candidates(*score_pairs_fused_plain(
+        meta, tpl_bits, file_bits, n_words, lengths, cc_fp), k)
+
+
+def topk_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp, k: int):
+    """The exact top-k (idx, num, den) int32[B, k] over T >= 1 templates,
+    1 <= k <= `K_FUSED_MAX`: what `topk_exact` gives on
+    `score_pairs_fused`'s planes, in one launch of K1 with no [B, T]
+    planes.  Takes what `score_pairs_fused` takes, and k."""
+    if file_bits.device.type != "cuda":
+        return topk_fused_plain(
+            meta, tpl_bits, file_bits, n_words, lengths, cc_fp, k
+        )
+    B, T, W, dev = _check_k1("topk_fused", meta, tpl_bits, file_bits,
+                             n_words, lengths, cc_fp)
+    k = int(k)
+    if T == 0 or not 1 <= k <= K_FUSED_MAX:
+        raise ValueError(
+            f"topk_fused needs T >= 1 and 1 <= k <= {K_FUSED_MAX} "
+            f"(T={T}, k={k})"
+        )
+    if B == 0:
+        return torch.empty((3, 0, k), dtype=torch.int32, device=dev).unbind(0)
+    splits, per_split, tc = topk_fused_schedule(B, T, W,
+                                                _sm_count(dev.index))
+    # one allocation: the (idx, num, den) rows, then, where the templates
+    # are split over blocks, the blocks' partial lists
+    buf = torch.empty(3 * B * k * (1 + (splits if splits > 1 else 0)),
+                      dtype=torch.int32, device=dev)
+    ptr = buf.data_ptr()
+    scratch = tickets = None
+    if splits > 1:
+        scratch = ptr + 4 * 3 * B * k
+        tickets = _tickets(dev, -(-B // K1_BM)).data_ptr()
+    err = _launch(
+        dev, _lib().dice_topk_fused,
+        meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
+        n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
+        ptr, ptr + 4 * B * k, ptr + 8 * B * k, scratch, tickets,
+        B, T, W, per_split, tc, k,
+    )
+    LAUNCHES["topk_fused"] += 1
+    _raise_on(err, "topk_fused")
+    return buf[: 3 * B * k].view(3, B, k).unbind(0)
 
 
 # -- the scorer the batch path dispatches ------------------------------------
@@ -529,10 +626,13 @@ class BestMatchScorer:
 
     Top-1: the K1 methods run the fused first-max (`best_match_fused`,
     one launch); the K2 methods run K2, then the score algebra and the
-    argmax in PyTorch.  Top-k (``--closest``): the K1 methods run K1's
-    planes (`score_pairs_fused`) and the K2 methods K2 and the score
-    algebra, then `topk_exact`; no argmax runs, since the top-k's column
-    0 is the top-1.
+    argmax in PyTorch.  Top-k (``--closest``): the K1 methods run K1
+    with the top-k fused (`topk_fused`, one launch, no planes) where k
+    is at most `K_FUSED_MAX`, and above it K1's planes
+    (`score_pairs_fused`) then `topk_exact`; the K2 methods run K2 and
+    the score algebra, then `topk_exact`.  No argmax runs, since the
+    top-k's column 0 is the top-1.  ``route`` names the chain chosen,
+    which the batch path's dispatch stats carry.
 
     `submit` is the non-blocking half: on a card it enqueues, on the
     device's dispatch stream, the copies of the staged rows to the card,
@@ -545,6 +645,7 @@ class BestMatchScorer:
         self.device = ct.bits.device
         self.n_lanes = ct.bits.shape[1]
         self.k = int(k)
+        fused_k = method in K1_METHODS and 0 < self.k <= K_FUSED_MAX
         if method in K1_METHODS:
             meta = pack_meta(ct)
 
@@ -553,6 +654,9 @@ class BestMatchScorer:
 
             def best(fb, nw, ln, cf):
                 return best_match_fused(meta, ct.bits, fb, nw, ln, cf)
+
+            def fused(fb, nw, ln, cf):
+                return topk_fused(meta, ct.bits, fb, nw, ln, cf, self.k)
         elif method in K2_METHODS:
             tpl = pack_templates_mma(ct)
 
@@ -568,7 +672,14 @@ class BestMatchScorer:
         def top_k(fb, nw, ln, cf):
             return topk_exact(*planes(fb, nw, ln, cf), self.k)
 
-        self._best = top_k if self.k else best
+        kernel = "K1" if method in K1_METHODS else "K2"
+        if not self.k:
+            self._best, self.route = best, f"{kernel} top-1"
+        elif fused_k:
+            self._best, self.route = fused, f"K1 + top-k fused (k={self.k})"
+        else:
+            self._best = top_k
+            self.route = f"{kernel} planes + topk_exact (k={self.k})"
         self.stream = (
             dispatch_stream(self.device.index)
             if self.device.type == "cuda" else None

@@ -20,8 +20,16 @@ of an earlier blob skips featurization and the device.  The rows and
 the sidecar are byte-identical to the JAX package's, so either package
 resumes the other's partial output.
 
+Manifest entries may address tar, zip and git containers
+(``archive.tar::LICENSE``, ``archive.tar::*``, ``repo.git::HEAD``,
+`ingest/sources.py`): the manifest expands at construction into one row
+per member blob, read straight out of its container by the produce
+workers, and the expansion's fingerprint joins the sidecar, so a
+rewritten archive refuses a resume.  After the run, the container-level
+verdicts go to ``<output>.containers.jsonl`` (`ingest/verdict.py`).
+
 What waits for later slices (ROADMAP A): stripes and multi-host runs,
-several devices (lanes), containers, progress lines and the obs
+several devices (lanes), remote containers, progress lines and the obs
 registry.
 """
 
@@ -61,20 +69,41 @@ class ResumeConfigError(ValueError):
 # to dispatch) from the parent's pickled corpus; batches come back as
 # plain numpy and dataclasses.  The cross-batch dedupe cache stays in
 # the parent and is applied on receipt.  The parent holds a live CUDA
-# context, so the pool spawns its workers, never forks them.
+# context, so the pool spawns its workers, never forks them.  With
+# containers in the manifest, each worker reopens them from the
+# expansion's picklable descriptor (fresh handles, never inherited
+# descriptors) and reads by the chunk's offset, as the threads do.
 
 _MP_STATE: dict = {}
 
 
-def _mp_init(corpus, mode, batch_size):
+def _mp_init(corpus, mode, batch_size, ingest_desc=None):
     _MP_STATE["clf"] = BatchClassifier(
         corpus=corpus, mode=mode, pad_batch_to=batch_size, device=None
     )
+    if ingest_desc is not None:
+        from licensee_tpu_torch.ingest.sources import ManifestExpansion
+
+        _MP_STATE["ingest"] = ManifestExpansion.from_descriptor(ingest_desc)
 
 
-def _mp_produce(chunk, mode, dedupe, attribution):
+def _mp_produce(chunk, mode, dedupe, attribution, start=None):
+    exp = _MP_STATE.get("ingest")
+    read = filenames = None
+    if exp is not None:
+        read = _read_from(exp, start)
+        filenames = exp.filenames[start : start + len(chunk)]
     return (chunk, *produce_batch(
-        _MP_STATE["clf"], chunk, mode, dedupe, attribution))
+        _MP_STATE["clf"], chunk, mode, dedupe, attribution, read=read,
+        filenames=filenames))
+
+
+def _read_from(exp, start: int):
+    """The produce stage's read hook for the chunk at ``start`` of an
+    expanded manifest: reads by global index, since display names are
+    not unique across containers."""
+    read_at = exp.read_at
+    return lambda _path, i: read_at(start + i)
 
 
 @dataclass
@@ -147,15 +176,32 @@ class BatchProject:
         attribution: bool = False,
         device="cuda",
     ):
-        self.paths = list(manifest_paths)
-        self.classifier = BatchClassifier(
-            corpus=corpus,
-            method=method,
-            pad_batch_to=batch_size,
-            mode=mode,
-            closest=closest,
-            device=device,
+        from licensee_tpu_torch.ingest.sources import (
+            expand_manifest,
+            is_container_entry,
         )
+
+        paths = list(manifest_paths)
+        # container entries expand into one work item per member blob
+        # (metadata only: member tables, central directories, root
+        # trees); a torn container raises here, before any row exists
+        self.ingest = None
+        if any(is_container_entry(p) for p in paths):
+            self.ingest = expand_manifest(paths)
+            paths = self.ingest.paths
+        self.paths = paths
+        try:
+            self.classifier = BatchClassifier(
+                corpus=corpus,
+                method=method,
+                pad_batch_to=batch_size,
+                mode=mode,
+                closest=closest,
+                device=device,
+            )
+        except BaseException:
+            self.close()
+            raise
         self.batch_size = batch_size
         self.threshold = (
             licensee_tpu_torch.confidence_threshold()
@@ -235,10 +281,21 @@ class BatchProject:
         """Worker-thread stage: read + dedupe + prefilter + featurize,
         with the live cross-batch dedupe cache."""
         chunk = self.paths[start : start + self.batch_size]
+        read = filenames = None
+        if self.ingest is not None:
+            read = _read_from(self.ingest, start)
+            filenames = self.ingest.filenames[start : start + len(chunk)]
         return (chunk, *produce_batch(
             self.classifier, chunk, self.mode, self.dedupe, self.attribution,
             cache=self._dedupe_cache if self.dedupe else None,
+            read=read, filenames=filenames,
         ))
+
+    def close(self) -> None:
+        """Release the container handles (archive descriptors, git ODB
+        handles) of an expanded manifest; a loose manifest holds none."""
+        if self.ingest is not None:
+            self.ingest.close()
 
     def _run_config(self) -> dict:
         """Everything that changes the CONTENT of an output row, in the
@@ -273,9 +330,12 @@ class BatchProject:
             "threshold": self.threshold,
             "closest": self.classifier.closest,
             "attribution": self.attribution,
-            # the container-expansion fingerprint: containers wait for a
-            # later slice, so a loose manifest's None
-            "ingest": None,
+            # the container-expansion fingerprint (None for a loose
+            # manifest): an archive rewritten between runs refuses the
+            # resume instead of appending rows of other contents
+            "ingest": (
+                self.ingest.fingerprint() if self.ingest is not None else None
+            ),
             # descriptive only (never compared): names the corpus in
             # refusal messages
             "corpus_source": self.corpus_source,
@@ -337,6 +397,10 @@ class BatchProject:
         done = 0
         if resume and os.path.exists(output):
             done = self._resume_point(output)
+        if done and self.ingest is not None:
+            # the written prefix is never read again: sequential-window
+            # containers skip it instead of caching it
+            self.ingest.mark_done_prefix(done)
         mode = "a" if done else "w"
 
         starts = deque(range(done, len(self.paths), self.batch_size))
@@ -353,7 +417,12 @@ class BatchProject:
                 max_workers=self.featurize_procs,
                 mp_context=multiprocessing.get_context("spawn"),
                 initializer=_mp_init,
-                initargs=(self.classifier.corpus, self.mode, self.batch_size),
+                initargs=(
+                    self.classifier.corpus, self.mode, self.batch_size,
+                    # a reopen recipe, never the parent's live handles
+                    self.ingest.descriptor()
+                    if self.ingest is not None else None,
+                ),
             )
         else:
             pool = ThreadPoolExecutor(max_workers=self.workers)
@@ -384,6 +453,7 @@ class BatchProject:
                         self.mode,
                         self.dedupe,
                         self.attribution,
+                        start,
                     ))
                 else:
                     futures.append(pool.submit(produce_timed, start))
@@ -547,6 +617,21 @@ class BatchProject:
                 raise writer_err[0]
         self.stats.pipeline = lanes.occupancy()
         self.stats.dispatch = self.classifier.dispatch_stats()
+        if self.ingest is not None and (
+            self.ingest.spans or self.ingest.subsets
+        ):
+            # the container-level verdicts, derived from the finished
+            # per-blob output alone and replaced atomically, so a resumed
+            # run regenerates the same rows
+            from licensee_tpu_torch.ingest.verdict import (
+                write_container_verdicts,
+            )
+
+            t0 = time.perf_counter()
+            write_container_verdicts(
+                output, self.ingest.spans, self.ingest.subsets
+            )
+            self.stats.add_stage("containers", time.perf_counter() - t0)
         self.stats.add_stage("elapsed", time.perf_counter() - t_run)
         return self.stats
 
@@ -562,6 +647,7 @@ class BatchProject:
         stats = self.stats
         cache = self._dedupe_cache
         attribution_for = self.classifier.attribution_for
+        route_name = self._route_name
         read_errors = featurize_errors = dedupe_hits = skipped_oversized = 0
         lines = []
         for k, (path, read_err, result) in enumerate(
@@ -585,7 +671,7 @@ class BatchProject:
                 ):
                     result.attribution = attribution_for(
                         contents[k],
-                        os.path.basename(path),
+                        route_name(path),
                         result,
                         route=routes[k] if routes is not None else None,
                     )
@@ -622,6 +708,18 @@ class BatchProject:
         stats.featurize_errors += featurize_errors
         stats.dedupe_hits += dedupe_hits
         stats.skipped_oversized += skipped_oversized
+
+    def _route_name(self, path: str) -> str:
+        """The filename the attribution gate reads: the member's
+        basename for a listed ``container::member`` entry (whose display
+        stays as written), else the path's."""
+        if self.ingest is not None:
+            from licensee_tpu_torch.ingest.sources import split_entry
+
+            parsed = split_entry(path)
+            if parsed is not None:
+                return os.path.basename(parsed[1])
+        return os.path.basename(path)
 
     def _count(self, result) -> None:
         if result.matcher == "copyright":

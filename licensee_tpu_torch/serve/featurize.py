@@ -5,8 +5,9 @@ read policy, the route-aware dispatch/content cache key, the batch
 produce core (route + read + dedupe + prefilter + featurize, with its
 read hook and stage seconds, and the contents kept for the attribution
 pass) and the JSONL row renderer, so the port writes rows byte-identical
-to the JAX package's.  The single-request twin the online micro-batcher
-calls and container reads wait for later slices (ROADMAP A).
+to the JAX package's.  Container members come in through the read hook
+(`ingest/sources.py`).  The single-request twin the online micro-batcher
+calls waits for a later slice (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -116,6 +117,7 @@ def _read_loose(path: str, _i: int):
 
 def produce_batch(
     classifier, chunk, mode, dedupe, attribution=False, cache=None, read=None,
+    filenames=None,
 ):
     """The produce stage: route + read + dedupe + prefilter + featurize
     one chunk of manifest paths, shared by the thread path (live
@@ -123,11 +125,15 @@ def produce_batch(
     cross-batch cache lives in the parent, which applies it on receipt).
 
     ``read(path, i)`` loads one blob by display path and in-chunk index;
-    the default reads loose files with :func:`read_capped`.  A read may
-    answer bytes, None (a ``read_error`` row) or a :class:`SkippedBlob`
-    (a row carrying its skip reason, e.g. ``oversized``).  In auto mode
-    the filename routes first: an entry no score table claims is never
-    read, hashed or featurized.
+    the default reads loose files with :func:`read_capped`, and an
+    expanded container manifest reads by index, since two containers may
+    hold the same member name.  A read may answer bytes, None (a
+    ``read_error`` row) or a :class:`SkippedBlob` (a row carrying its
+    skip reason, e.g. ``oversized``).  ``filenames`` overrides each
+    row's routing and dispatch name (by default the path's basename): a
+    container entry routes by its member's basename, not by its display
+    string.  In auto mode the filename routes first: an entry no score
+    table claims is never read, hashed or featurized.
 
     Returns ``(read_errs, keys, preset, dup_of, routes, prepared,
     contents, pre_rows, (read_s, featurize_s))``: the per-row read
@@ -140,7 +146,8 @@ def produce_batch(
     there are none) and the stage's seconds."""
     if read is None:
         read = _read_loose
-    filenames = [os.path.basename(p) for p in chunk]
+    if filenames is None:
+        filenames = [os.path.basename(p) for p in chunk]
     routes: list | None = None
     if mode == "auto":
         routes = [BatchClassifier.route_for(f) for f in filenames]

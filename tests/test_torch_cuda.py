@@ -432,7 +432,10 @@ def test_topk_refuses_what_it_cannot_take(card):
     with pytest.raises(ValueError, match="k >= 0"):
         dice_cuda.topk_exact(num, num, -1)
     with pytest.raises(ValueError, match="too wide"):
-        dice_cuda.topk_warps(30000)
+        dice_cuda.topk_schedule(1, 30000, 30000)
+    with pytest.raises(ValueError, match="too wide"):
+        wide = torch.zeros((1, 30000), dtype=torch.int32, device=card)
+        dice_cuda.topk_exact(wide, wide, 17)
 
 
 @pytest.mark.parametrize("method", ["popcount", "matmul"])
@@ -453,7 +456,10 @@ def test_topk_scorer_matches_plain(card, method):
         convert.corpus_tensors(corpus, card), method, k=4)
     dice_cuda.reset_launches()
     got = gpu(*feats)
-    assert dice_cuda.LAUNCHES["topk_exact"] == 1
+    fused = method == "popcount"  # k=4 fuses into K1's epilogue
+    assert dice_cuda.LAUNCHES["topk_fused"] == fused
+    assert dice_cuda.LAUNCHES["topk_exact"] == (not fused)
+    assert dice_cuda.LAUNCHES["score_pairs_fused"] == 0
     assert dice_cuda.LAUNCHES["best_match_fused"] == 0
     assert len(got) == 6
     for a, b in zip(got, cpu(*feats)):
@@ -478,6 +484,78 @@ def test_batch_detect_modes_on_the_card_match_cpu(card, tmp_path):
                               "--device", device, *flags]) == 0
             outs.append(out.read_bytes())
         if "--closest" in flags:
-            assert dice_cuda.LAUNCHES["topk_exact"] > 0
+            assert dice_cuda.LAUNCHES["topk_fused"] > 0
+            assert dice_cuda.LAUNCHES["topk_exact"] == 0
+            assert dice_cuda.LAUNCHES["score_pairs_fused"] == 0
             assert dice_cuda.LAUNCHES["best_match_fused"] == 0
         assert outs[0] == outs[1]
+
+
+# -- K1's fused top-k and the redesigned topk_exact -------------------------
+
+
+@pytest.mark.parametrize("k", [1, 4, 5, 8])
+@pytest.mark.parametrize("T", [1, 47, 63, 608])
+@pytest.mark.parametrize("B", [1, 347, 1565, 4097])
+def test_topk_fused_matches_plain_at_ragged_shapes(card, B, T, k):
+    """K1's top-k epilogue on random bits at ragged B and T, with the
+    templates split over blocks (small B) and not, at both list lengths
+    (k <= 4 and k <= 8) and k past T."""
+    args = k1_case(card, np.random.default_rng(B * 100 + T + k), B, T, 132)
+    before = dice_cuda.LAUNCHES["topk_fused"]
+    got = dice_cuda.topk_fused(*args, k)
+    want = dice_cuda.topk_fused_plain(*args, k)
+    assert dice_cuda.LAUNCHES["topk_fused"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == (B, k) and torch.equal(a, b)
+    assert torch.equal(got[0][:, 0], dice_cuda.best_match_fused(*args)[0])
+    assert not dice_cuda._tickets(args[0].device, 1).any()
+
+
+@pytest.mark.parametrize("B, T", [(347, 608), (4096, 47), (33, 200)])
+def test_topk_fused_ties_and_exclusions(card, B, T):
+    """Exact ties across the kernel's template splits, rows where every
+    template is excluded (template 0 at (-1, 1) in every round) and rows
+    with fewer real entries than k."""
+    rng = np.random.default_rng(T * B)
+    meta, bits, fb, nw, ln, cf = k1_case(card, rng, B, T, 132)
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    per_split = dice_cuda.topk_fused_schedule(B, T, 132, n_sms)[1]
+    dup = (torch.arange(T, device=card) % per_split) // 2 * 2
+    bits, meta = bits[dup].contiguous(), meta[dup].contiguous()
+    meta[:, dice_cuda.CC_FLAG] = 1
+    meta[: T // 2, dice_cuda.VALID] = 0  # half the templates invalid
+    src = torch.from_numpy(rng.integers(0, T, B)).to(card)
+    fb = bits[src].contiguous()
+    cf = torch.zeros(B, dtype=torch.bool, device=card)
+    cf[::3] = True
+    args = (meta, bits, fb, nw, ln, cf)
+    for k in (4, dice_cuda.K_FUSED_MAX):
+        got = dice_cuda.topk_fused(*args, k)
+        for a, b in zip(got, dice_cuda.topk_fused_plain(*args, k)):
+            assert torch.equal(a, b)
+        idx, num, den = got
+        assert (idx[cf] == 0).all() and (num[cf] == -1).all()
+        assert (den[cf] == 1).all()
+
+
+def test_topk_fused_refuses_what_it_cannot_take(card):
+    args = k1_case(card, np.random.default_rng(0), 8, 47, 112)
+    with pytest.raises(ValueError, match="1 <= k"):
+        dice_cuda.topk_fused(*args, dice_cuda.K_FUSED_MAX + 1)
+    with pytest.raises(ValueError, match="1 <= k"):
+        dice_cuda.topk_fused(*args, 0)
+
+
+@pytest.mark.parametrize("k", [2, 9, 16, 17, 100])
+@pytest.mark.parametrize("T", [3, 47, 608, 2049])
+def test_topk_exact_both_designs_match_plain(card, T, k):
+    """`topk_exact`'s lane groups (k <= 16) and its bitonic sort (k > 16)
+    at ragged T, rows of ties and rows with every entry excluded."""
+    rng = np.random.default_rng(T + k)
+    num, den = random_planes(card, rng, 77, T, tie_every=3 if k % 2 else 0)
+    num[::5], den[::5] = -1, 1
+    got = dice_cuda.topk_exact(num, den, k)
+    for a, b in zip(got, dice_cuda.topk_exact_plain(num, den, k)):
+        assert torch.equal(a, b)
+

@@ -348,7 +348,9 @@ def test_plain_versions_count_no_launches(corpus):
         dice_cuda.pack_templates_mma(ct), feats[0], ct.n_templates)
     dice_cuda.topk_exact(*dice_cuda.score_pairs_fused_plain(
         dice_cuda.pack_meta(ct), ct.bits, *feats), 4)
+    dice_cuda.topk_fused(dice_cuda.pack_meta(ct), ct.bits, *feats, 4)
     assert dice_cuda.LAUNCHES == {"score_pairs_fused": 0,
                                   "best_match_fused": 0,
+                                  "topk_fused": 0,
                                   "overlap_pairs_mma": 0,
                                   "topk_exact": 0}

@@ -197,7 +197,11 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "'licensee_tpu_torch.matchers.package', "
         "'licensee_tpu_torch.matchers.reference_matcher', "
         "'licensee_tpu_torch.project_files.package_manager_file', "
-        "'licensee_tpu_torch.project_files.readme_file'}\n"
+        "'licensee_tpu_torch.project_files.readme_file', "
+        "'licensee_tpu_torch.ingest.sources', "
+        "'licensee_tpu_torch.ingest.verdict', "
+        "'licensee_tpu_torch.native.gitodb', "
+        "'licensee_tpu_torch.projects.git_project'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
         "sys.exit(1 if bad or len(names) < 35 or new - set(names) else 0)\n"
     )
