@@ -34,7 +34,10 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    --closest path runs): the times `resolve_method`'s crossover rests
    on.  `topk_fused` (K1's third epilogue) is held bit for bit against
    its plain version at the four shapes above and on the ties case with
-   k = 4 (--closest 3) and k = `K_FUSED_MAX`; K4's top-k (`topk_exact`,
+   k = 4 (--closest 3) and k = `K_FUSED_MAX`.  The fused K1 is also held
+   bit for bit at the small batches `detect` gives it (B in `DETECT_B`,
+   1 to 65, at both widths, random and ties) and timed at B=1, the
+   DiceXLA matcher's launch; K4's top-k (`topk_exact`,
    csrc/dice_topk.cu) on K1's planes at the four shapes with k = 4 and
    k = T, and on the ties case, whose all-excluded rows must give
    template 0 at (-1, 1) in every round.  Each is timed beside its bound
@@ -88,11 +91,25 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    --attribution and --mode license at default flags, each against
    --device cpu, --pipeline-depth 1 --workers 1 and --featurize-procs 4
    (the JSONL and OUT.containers.jsonl byte for byte), and the resume
-   drill, which must give both files' sha256 again.
+   drill, which must give both files' sha256 again;
+8. detect: `detect` and `detect --json` over every fixture directory
+   against fixtures.yml (read by the port's `corpus/yamlite.py`) and
+   detect.json, four fixtures as git repositories (written in Python,
+   read by the native object-store backend) against their directories,
+   `license-path`, `version`, `help`, the bare-path default and `diff`'s
+   exact-match and invalid-license branches (its word diff needs git);
+   the DiceXLA matcher on the card against the scalar Dice on every
+   fixture's license file, one `best_match_fused` launch a file; and
+   `batch-detect` without --output over phase 4's vendored manifest,
+   whose stdout rows must equal its --output rows and the --device cpu
+   stdout rows.  A timing line gives the wall time of `detect` per
+   fixture and DiceXLA's per file, eager and K1's graph replay, beside
+   the card's name and power limit.
 
 A row's ``launches`` counts its kernel over its width's card runs of
-phases 4 to 7, each run between a reset of the counts and a read; the
-planes kernel (`score_pairs_fused`) launches on no main path.
+phases 4 to 8, each run between a reset of the counts and a read (the
+B=1 row at T=47: phase 8's DiceXLA run); the planes kernel
+(`score_pairs_fused`) launches on no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -162,6 +179,14 @@ SMALL_SHAPES = [
     ("B512,T608,W132", 512, SPDX_T, 132, "spdx"),
 ]
 TIES_SHAPE = ("ties,B347,T608,W132", 347, SPDX_T, 132, "spdx")
+# the fused K1 at the batches `detect`'s DiceXLA matcher (one file a call)
+# and small stdout batch-detect runs give it, held at both widths; B=1 is
+# also timed (the matcher's launch: its row counts phase 8's launches)
+DETECT_B = (1, 2, 7, 8, 9, 16, 17, 63, 64, 65)
+DETECT_SHAPES = [
+    ("B1,T47,W112", 1, 47, 112, "detect"),
+    ("B1,T608,W132", 1, SPDX_T, 132, "spdx"),
+]
 
 FIELD_VALUES = {
     "fullname": "Ben Balter",
@@ -607,6 +632,7 @@ def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
         rows += k1_rows(torch, label, B, T, W, run,
                         (dice_cuda.pack_meta(ct), ct.bits, *feats),
                         sm_clocks_per_s, epilogues=("best",))
+    rows += small_batches(np, torch, rng, sm_clocks_per_s)
     label, B, T, W, run = TIES_SHAPE
     args = ties_case(np, torch, rng, B, T, W)
     idx, num, den = dice_cuda.best_match_fused(*args)
@@ -625,6 +651,42 @@ def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
     rows += topk_fused_rows(torch, label, B, T, W, run, args,
                             sm_clocks_per_s)
     rows += topk_rows(np, torch, rng, args, sm_clocks_per_s)
+    return rows
+
+
+def small_batches(np, torch, rng, sm_clocks_per_s) -> list[dict]:
+    """The fused K1 at each of `DETECT_B` at T=47 and T=608, held bit for
+    bit against its plain version on random features and on the ties
+    case (copies of templates, exact ties across the template splits,
+    every fourth row with every template excluded); then the B=1 rows of
+    `DETECT_SHAPES`, timed."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    for B in DETECT_B:
+        for T, W in ((47, 112), (SPDX_T, 132)):
+            ct, feats = random_case(np, torch, rng, B, T, W)
+            args = (dice_cuda.pack_meta(ct), ct.bits, *feats)
+            held_against_plain(torch, f"best_match_fused B={B} T={T}",
+                               lambda: dice_cuda.best_match_fused(*args),
+                               lambda: dice_cuda.best_match_fused_plain(*args))
+            ties = ties_case(np, torch, rng, B, T, W)
+            idx, num, den = got = dice_cuda.best_match_fused(*ties)
+            held_against_plain(
+                torch, f"best_match_fused ties B={B} T={T}", lambda: got,
+                lambda: dice_cuda.best_match_fused_plain(*ties))
+            cf = ties[5]
+            if not ((idx[cf] == 0).all() and (num[cf] == -1).all()
+                    and (den[cf] == 1).all()):
+                raise AssertionError(f"ties B={B} T={T}: an all-excluded "
+                                     "row is not (0, -1, 1)")
+    log(f"best_match_fused: bit-identical to its plain version at B in "
+        f"{list(DETECT_B)} at T=47 and T={SPDX_T}, random and ties")
+    rows = []
+    for label, B, T, W, run in DETECT_SHAPES:
+        ct, feats = random_case(np, torch, rng, B, T, W)
+        rows += k1_rows(torch, label, B, T, W, run,
+                        (dice_cuda.pack_meta(ct), ct.bits, *feats),
+                        sm_clocks_per_s, epilogues=("best",))
     return rows
 
 
@@ -1297,7 +1359,7 @@ def busy_share(torch, what: str, run, full: bytes) -> None:
 
 
 def phase_slice(np, torch, seed: int) -> dict:
-    """Phases 4 to 7; returns {(run, kernel): launches}."""
+    """Phases 4 to 8; returns {(run, kernel): launches}."""
     from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
@@ -1325,6 +1387,7 @@ def phase_slice(np, torch, seed: int) -> dict:
                       launches, "spdx", drill=False)
         modes(np, torch, seed, root, spdx, spdx_dir, launches)
         containers(np, torch, seed, root, launches)
+        phase_detect(torch, root, vendored, launches)
     return launches
 
 
@@ -1655,6 +1718,270 @@ def containers(np, torch, seed: int, root: str, launches: dict) -> None:
                            n_rows, derived=(".containers.jsonl",))
         for k, c in got.items():
             launches["vendored", k] = launches.get(("vendored", k), 0) + c
+
+
+# -- phase 8: detect -----------------------------------------------------------
+
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fixtures")
+
+
+def run_verb(argv: list[str], stdin: str = "") -> tuple:
+    """(exit code, stdout, stderr, seconds) of one call of the port's CLI
+    in this process, ``stdin`` on its standard input."""
+    from licensee_tpu_torch.cli.main import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    saved, sys.stdin = sys.stdin, io.StringIO(stdin)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli(argv)
+    finally:
+        sys.stdin = saved
+    return rc, out.getvalue(), err.getvalue(), time.perf_counter() - t0
+
+
+def detect_fixtures(root: str) -> list[float]:
+    """`detect` and `detect --json` over every fixture directory: the
+    license, its file's matcher and content hash as fixtures.yml pins
+    them (read by the port's `corpus/yamlite.py`), in the output and in
+    the project it printed; then detect.json as
+    tests/test_cli.py::test_detect_json_full_golden builds its case, and
+    a few fixtures as git repositories (written in Python, read by the
+    native object-store backend) against their directories.  Returns
+    the seconds each fixture's text `detect` took."""
+    import licensee_tpu_torch
+    from licensee_tpu_torch.corpus import yamlite
+    from licensee_tpu_torch.corpus.license import License
+
+    with open(os.path.join(FIXTURES, "fixtures.yml"), encoding="utf-8") as fh:
+        golden = yamlite.load_document(fh.read())
+    seconds = []
+    for name in sorted(golden):
+        want = golden[name] or {}
+        path = os.path.join(FIXTURES, name)
+        rc, text, _err, took = run_verb(["detect", path])
+        seconds.append(took)
+        rc_json, js, _err, _s = run_verb(["detect", "--json", path])
+        project = licensee_tpu_torch.project(path, detect_packages=True,
+                                             detect_readme=True)
+        lf = project.license_file
+        got = {
+            "key": project.license.key if project.license else None,
+            "matcher": lf.matcher.name if lf and lf.matcher else None,
+            "hash": lf.content_hash if lf else None,
+        }
+        if got != {k: want.get(k) for k in got}:
+            raise AssertionError(f"detect {name}: {got} != fixtures.yml "
+                                 f"{want}")
+        data = json.loads(js)
+        if rc != rc_json or rc != (0 if data["licenses"] else 1):
+            raise AssertionError(f"detect {name}: exit codes {rc}, {rc_json}")
+        first = text.splitlines()[0].split(None, 1)
+        if want.get("key") and project.license == License.find(want["key"]):
+            if first != ["License:", project.license.spdx_id]:
+                raise AssertionError(f"detect {name}: first line {first}")
+        if want.get("hash"):
+            files = {(f["content_hash"], (f["matcher"] or {}).get("name"))
+                     for f in data["matched_files"]}
+            if (f"Content hash:  {want['hash']}" not in text or
+                    (want["hash"], want["matcher"]) not in files):
+                raise AssertionError(f"detect {name}: hash or matcher "
+                                     "missing from the output")
+    with open(os.path.join(FIXTURES, "detect.json"), encoding="utf-8") as fh:
+        fixture = json.load(fh)
+    case = os.path.join(root, "detect-json")
+    os.makedirs(case)
+    for i, fname in enumerate(("LICENSE.md", "licensee.gemspec")):
+        with open(os.path.join(case, fname), "w", encoding="utf-8") as fh:
+            fh.write(fixture["matched_files"][i]["content"])
+    rc, js, _err, _s = run_verb(["detect", "--json", case])
+    got = json.loads(js)
+    for d in (fixture, got):
+        d["matched_files"][1].pop("content", None)
+    if rc != 0 or got != fixture:
+        raise AssertionError("detect --json differs from detect.json")
+    for name in ("mit", "lgpl", "multiple-license-files", "apache-2.0_markdown"):
+        src = os.path.join(FIXTURES, name)
+        repo = os.path.join(root, "git-" + name)
+        files = []
+        for fname in sorted(os.listdir(src)):
+            if os.path.isfile(os.path.join(src, fname)):
+                with open(os.path.join(src, fname), "rb") as fh:
+                    files.append((fname, fh.read()))
+        write_git_objects(repo, files)
+        project = licensee_tpu_torch.project(repo)
+        backend = type(getattr(project, "_backend", None)).__name__
+        as_git = run_verb(["detect", "--json", repo])
+        as_dir = run_verb(["detect", "--json", src])
+        if backend != "_NativeBackend" or as_git[:2] != as_dir[:2]:
+            raise AssertionError(f"detect {name} as a git repository "
+                                 f"({backend}) differs from the directory")
+    return seconds
+
+
+def other_verbs() -> None:
+    """`license-path` (present and missing), `version`, `help`, the
+    bare-path default, and `diff`'s exact-match and invalid-license
+    branches (its word diff needs git, which this host may lack)."""
+    import licensee_tpu_torch
+
+    mit = os.path.join(FIXTURES, "mit")
+    checks = {
+        "license-path": (run_verb(["license-path", mit]),
+                         (0, os.path.join(mit, "LICENSE.txt") + "\n")),
+        "license-path missing": (
+            run_verb(["license-path", os.path.join(FIXTURES, "readme")]),
+            (1, "")),
+        "version": (run_verb(["version"]),
+                    (0, licensee_tpu_torch.__version__ + "\n")),
+    }
+    for what, (got, want) in checks.items():
+        if got[:2] != want:
+            raise AssertionError(f"{what}: {got[:3]} != {want}")
+    rc, out, _err, _s = run_verb(["help"])
+    if rc != 0 or not out.startswith("Licensee commands:") or not all(
+            f" {verb} " in out for verb in
+            ("detect", "diff", "license-path", "version", "batch-detect")):
+        raise AssertionError(f"help: {out!r}")
+    if run_verb([mit])[:3] != run_verb(["detect", mit])[:3]:
+        raise AssertionError("a bare path does not run detect")
+    rc, out, _err, _s = run_verb(["diff", mit, "--license", "mit"])
+    if rc != 0 or not out.rstrip().endswith("Exact match!"):
+        raise AssertionError(f"diff exact: {rc} {out!r}")
+    with open(os.path.join(mit, "LICENSE.txt"), encoding="utf-8") as fh:
+        rc, out_stdin, _err, _s = run_verb(["diff", "--license", "mit"],
+                                           stdin=fh.read())
+    if rc != 0 or out_stdin != out:
+        raise AssertionError("diff of stdin differs from the project's")
+    rc, out, err, _s = run_verb(["diff", mit, "--license", "not-a-license"])
+    if rc != 1 or out or not err.startswith(
+            "not-a-license is not a valid license\nValid licenses: "):
+        raise AssertionError(f"diff invalid license: {rc} {err!r}")
+
+
+def dice_xla_on_card(torch, device: str = "cuda") -> tuple:
+    """The DiceXLA matcher on ``device`` against the scalar Dice on every
+    fixture's license file, the launch counts reset before and read
+    after.  Returns (files, launches, per-file ms, device ms of K1 at
+    the matcher's one-row batch replayed from a CUDA graph)."""
+    from licensee_tpu_torch.kernels import dice_cuda
+    from licensee_tpu_torch.matchers import Dice, DiceXLA, dice_xla_matcher
+    from licensee_tpu_torch.projects import FSProject
+
+    dice_xla_matcher.use_device(device)
+    files = []
+    for name in sorted(os.listdir(FIXTURES)):
+        if os.path.isdir(os.path.join(FIXTURES, name)):
+            lf = FSProject(os.path.join(FIXTURES, name),
+                           detect_packages=False,
+                           detect_readme=False).license_file
+            if lf is not None:
+                files.append(lf)
+    dice_xla_matcher._shared_classifier()  # set-up outside the timing
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+    dice_cuda.reset_launches()
+    t0 = time.perf_counter()
+    got = [(m.match, m.confidence) for m in map(DiceXLA, files)]
+    if on_card:
+        torch.cuda.synchronize()
+    per_file_ms = (time.perf_counter() - t0) / len(files) * 1e3
+    launches = dice_cuda.LAUNCHES["best_match_fused"]
+    others = {k: n for k, n in dice_cuda.LAUNCHES.items()
+              if n and k != "best_match_fused"}
+    want = [(d.match, d.confidence) for d in map(Dice, files)]
+    if got != want:
+        bad = [f.filename for f, g, w in zip(files, got, want) if g != w]
+        raise AssertionError(f"DiceXLA != Dice on {bad}")
+    if on_card and (launches != len(files) or others):
+        raise AssertionError(f"DiceXLA: {launches} best_match_fused "
+                             f"launches for {len(files)} files, and "
+                             f"{others}")
+    graph_ms = None
+    if on_card:
+        clf = dice_xla_matcher._shared_classifier()
+        prepared = clf.prepare_batch([files[0].content], prefilter=False)
+        feats = [torch.from_numpy(a[:1]).to(device) for a in (
+            prepared.bits.view("int32"), prepared.n_words, prepared.lengths,
+            prepared.cc_fp)]
+        args = (dice_cuda.pack_meta(clf.tensors), clf.tensors.bits, *feats)
+        held_against_plain(torch, "DiceXLA's K1 call",
+                           lambda: dice_cuda.best_match_fused(*args),
+                           lambda: dice_cuda.best_match_fused_plain(*args))
+        graph_ms = graph_time_ms(
+            torch, lambda: dice_cuda.best_match_fused(*args), 12)
+    return len(files), launches, per_file_ms, graph_ms
+
+
+def stdout_rows(torch, root: str, manifest: str, device: str) -> tuple:
+    """`batch-detect` without --output on ``device`` (the launch counts
+    reset before and read after), against the same run with --output:
+    the stdout rows must be the file's bytes.  Returns (stdout,
+    launches, stats)."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    argv = ["batch-detect", manifest, "--device", device, "--stats"]
+    if device == "cuda":
+        torch.cuda.synchronize()
+    dice_cuda.reset_launches()
+    rc, out, err, took = run_verb(argv)
+    launches = dict(dice_cuda.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"batch-detect {argv} exited {rc}: {err[-2000:]}")
+    stats = json.loads(err.strip().splitlines()[-1])
+    output = os.path.join(root, f"stdout-twin.{device}.jsonl")
+    run_cli([*argv, "--output", output])
+    with open(output, encoding="utf-8") as fh:
+        if fh.read() != out:
+            raise AssertionError(f"batch-detect stdout on {device} differs "
+                                 "from its --output rows")
+    n_rows = count_rows(manifest)
+    if out.count("\n") != n_rows or stats["total"] != n_rows:
+        raise AssertionError(f"batch-detect stdout: {out.count(chr(10))} "
+                             f"rows for {n_rows} entries")
+    log(f"batch-detect stdout --device {device}: {n_rows} rows in "
+        f"{took:.3f} s ({n_rows / took:.1f} rows/s), read_errors "
+        f"{stats['read_errors']}, skipped_oversized "
+        f"{stats['skipped_oversized']}; launches {json.dumps(launches)}")
+    return out, launches, stats
+
+
+def phase_detect(torch, root: str, manifest: str, launches: dict) -> None:
+    """Phase 8: `detect` and its sibling verbs, the DiceXLA matcher on the
+    card, and `batch-detect` on stdout over the vendored slice
+    manifest."""
+    t0 = time.perf_counter()
+    seconds = detect_fixtures(root)
+    other_verbs()
+    log(f"detect: {len(seconds)} fixtures (text and --json) agree with "
+        f"fixtures.yml and detect.json; license-path, version, help, the "
+        f"bare path and diff agree ({time.perf_counter() - t0:.1f} s)")
+    n_files, n_launch, per_file_ms, graph_ms = dice_xla_on_card(torch)
+    launches["detect", "best_match_fused"] = n_launch
+    seconds.sort()
+    log(f"detect timing: {smi('name,power.limit')}; detect wall per "
+        f"fixture: median {seconds[len(seconds) // 2] * 1e3:.2f} ms, min "
+        f"{seconds[0] * 1e3:.2f}, max {seconds[-1] * 1e3:.2f}, total "
+        f"{sum(seconds):.3f} s over {len(seconds)}; DiceXLA per file: "
+        f"eager {per_file_ms:.3f} ms (featurize, dispatch, K1 at B=1), "
+        f"K1 graph {graph_ms:.4f} ms; {n_files} files, best_match_fused "
+        f"launches {n_launch}, (key, confidence) equal to Dice on each")
+    card, card_launches, card_stats = stdout_rows(torch, root, manifest,
+                                                  "cuda")
+    if not card_launches["best_match_fused"]:
+        raise AssertionError("batch-detect stdout never launched "
+                             "best_match_fused")
+    for name, n in card_launches.items():
+        launches["vendored", name] = launches.get(("vendored", name), 0) + n
+    cpu, _l, cpu_stats = stdout_rows(torch, root, manifest, "cpu")
+    if card != cpu or card_stats["read_errors"] != cpu_stats["read_errors"]:
+        raise AssertionError("batch-detect stdout: the card's rows differ "
+                             "from --device cpu")
+    log("batch-detect stdout: the card's rows equal its --output rows and "
+        "the --device cpu rows")
 
 
 def main() -> int:

@@ -1,7 +1,13 @@
 """Command-line interface of the PyTorch/CUDA port.
 
+    python -m licensee_tpu_torch.cli.main [detect] [PATH] [--json] \\
+        [--confidence N] [--license KEY] [--diff] [--no-packages] \\
+        [--no-readme] [--remote] [--ref REF]
+    python -m licensee_tpu_torch.cli.main diff [PATH] --license KEY
+    python -m licensee_tpu_torch.cli.main license-path [PATH]
+    python -m licensee_tpu_torch.cli.main version | help [COMMAND]
     python -m licensee_tpu_torch.cli.main batch-detect MANIFEST \\
-        --output OUT.jsonl [--corpus vendored|spdx|DIR|ARTIFACT] \\
+        [--output OUT.jsonl] [--corpus vendored|spdx|DIR|ARTIFACT] \\
         [--mode license|readme|package|auto] [--closest K] \\
         [--attribution] [--method M] [--batch-size N] [--confidence N] \\
         [--no-dedupe] [--device cuda|cpu] [--workers N] \\
@@ -10,6 +16,15 @@
     python -m licensee_tpu_torch.cli.main corpus-build \\
         [--corpus SRC] --output ART.npz | --inspect ART.npz
 
+`detect` (the default command: a bare path runs it), `diff`,
+`license-path`, `version` and `help` are the reference's verbs
+(`bin/licensee`), with the JAX package's output byte for byte but for
+the package in `detect`'s ``Matcher:`` line and the program name in
+`help`.  They run the per-file matcher chain Copyright -> Exact -> Dice
+on the host over a directory, a file, a git repository or a GitHub
+URL; `diff --socket`, which speaks to a `serve` worker, waits for the
+`serve` verb.
+
 `batch-detect` classifies a manifest of loose files and local tar, zip
 and git containers (one entry per line: ``path``, ``archive.tar::member``,
 ``archive.zip::*``, ``repo.git::HEAD``) and writes JSONL rows, and for
@@ -17,13 +32,15 @@ containers ``OUTPUT.containers.jsonl``, byte-identical to the JAX package's
 `licensee-tpu batch-detect`, through the same pipeline: featurize worker
 threads (or processes), coalesced device chunks, an overlap pipeline of
 device groups in flight, a writer thread, and resume of a partial
-``--output`` from its ``.meta.json`` sidecar.  It runs on the CUDA
-device unless ``--device cpu`` asks for the plain PyTorch scorers on the
-CPU.  `corpus-build` writes a corpus artifact in the JAX package's
-format (`corpus/artifact.py`).  Printing rows without ``--output``,
-``--stripes``, ``--mesh``, ``--device-lanes``, ``--progress``, remote
-(http(s)) containers, which a manifest may not name, and the other verbs
-of `licensee_tpu/cli/main.py` wait for later slices (ROADMAP A).
+``--output`` from its ``.meta.json`` sidecar.  Without ``--output`` it
+prints the rows (and the container verdicts after them) on stdout from
+one unpipelined pass.  It runs on the CUDA device unless ``--device
+cpu`` asks for the plain PyTorch scorers on the CPU.  `corpus-build`
+writes a corpus artifact in the JAX package's format
+(`corpus/artifact.py`).  ``--stripes``, ``--mesh``, ``--device-lanes``,
+``--progress``, remote (http(s)) containers, which a manifest may not
+name, and the other verbs of `licensee_tpu/cli/main.py` wait for later
+slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -31,9 +48,244 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import subprocess
 import sys
+import tempfile
 
+import licensee_tpu_torch
 from licensee_tpu_torch.kernels.batch import METHODS
+from licensee_tpu_torch.normalize.pipeline import format_percent
+
+
+def _print_table(rows, indent: int = 0) -> None:
+    if not rows:
+        return
+    width = max(len(str(row[0])) for row in rows)
+    for label, value in rows:
+        print(" " * indent + f"{str(label):<{width}}  {value}")
+
+
+def _resolve_path(args) -> str:
+    path = args.path or os.getcwd()
+    if args.remote and not re.match(r"^https://", path):
+        return f"https://github.com/{path}"
+    return path
+
+
+def _build_project(args, path: str):
+    return licensee_tpu_torch.project(
+        path,
+        detect_packages=args.packages,
+        detect_readme=args.readme,
+        ref=getattr(args, "ref", None),
+    )
+
+
+def _licenses_by_similarity(matched_file):
+    """Every candidate ranked by similarity, for the closest-licenses
+    view.  commands/detect.rb:97-102 means to widen the pool to hidden
+    licenses, but sets @potential_licenses where the memoized reader
+    checks @potential_matches, so the pool is Dice's own (hidden
+    included, pseudo excluded); so is this one."""
+    from licensee_tpu_torch.matchers import Dice
+
+    return Dice(matched_file).matches_by_similarity
+
+
+def cmd_detect(args) -> int:
+    from licensee_tpu_torch.project_files.license_file import LicenseFile
+
+    licensee_tpu_torch.set_confidence_threshold(args.confidence)
+    path = _resolve_path(args)
+    project = _build_project(args, path)
+
+    if args.json:
+        print(json.dumps(project.to_h()))
+        return 0 if project.licenses else 1
+
+    rows = []
+    if project.license:
+        rows.append(["License:", project.license.spdx_id])
+    elif project.licenses:
+        rows.append(["Licenses:", [lic.spdx_id for lic in project.licenses]])
+    else:
+        rows.append(["License:", "None"])
+    if project.matched_files:
+        rows.append(
+            ["Matched files:", ", ".join(f.filename for f in project.matched_files)]
+        )
+    _print_table(rows)
+
+    for matched_file in project.matched_files:
+        print(f"{matched_file.filename}:")
+        rows = []
+        if matched_file.content_hash:
+            rows.append(["Content hash:", matched_file.content_hash])
+        if matched_file.attribution:
+            rows.append(["Attribution:", matched_file.attribution])
+        if matched_file.confidence is not None:
+            rows.append(["Confidence:", format_percent(matched_file.confidence)])
+        if matched_file.matcher:
+            matcher_cls = type(matched_file.matcher)
+            rows.append(
+                ["Matcher:", f"{matcher_cls.__module__}.{matcher_cls.__name__}"]
+            )
+        if matched_file.license:
+            rows.append(["License:", matched_file.license.spdx_id])
+        _print_table(rows, indent=2)
+
+        if not isinstance(matched_file, LicenseFile):
+            continue
+        if matched_file.confidence == 100:
+            continue
+        ranked = _licenses_by_similarity(matched_file)
+        if not ranked:
+            continue
+        print("  Closest non-matching licenses:")
+        _print_table(
+            [
+                [f"{lic.meta['spdx-id']} similarity:", format_percent(sim)]
+                for lic, sim in ranked[:3]
+            ],
+            indent=4,
+        )
+
+    if project.license_file and (args.license or args.diff):
+        license_key = args.license
+        if not license_key:
+            ranked = _licenses_by_similarity(project.license_file)
+            license_key = ranked[0][0].key if ranked else None
+        if license_key:
+            return _diff(license_key, project.license_file)
+
+    return 0 if project.licenses else 1
+
+
+def _diff(license_key: str, license_to_diff) -> int:
+    from licensee_tpu_torch.corpus.license import License
+
+    expected = License.find(license_key)
+    if expected is None:
+        print(f"{license_key} is not a valid license", file=sys.stderr)
+        keys = ", ".join(lic.key for lic in License.all(hidden=True))
+        print(f"Valid licenses: {keys}", file=sys.stderr)
+        return 1
+
+    print(f"Comparing to {expected.name}:")
+    left = expected.content_normalized(wrap_at=80)
+    right = license_to_diff.content_normalized(wrap_at=80)
+    similarity = expected.similarity(license_to_diff)
+    _print_table(
+        [
+            ["Input Length:", license_to_diff.length],
+            ["License length:", expected.length],
+            ["Similarity:", format_percent(similarity)],
+        ]
+    )
+    if left == right:
+        print("Exact match!")
+        return 0
+
+    # the word diff of the normalized, wrapped texts: commands/diff.rb:27-37
+    # commits the template in a temporary repository and lets git diff
+    # the input against it, and so does this
+    with tempfile.TemporaryDirectory() as tmpdir:
+        path = os.path.join(tmpdir, "LICENSE")
+        env = {**os.environ, "GIT_CONFIG_GLOBAL": "/dev/null", "GIT_CONFIG_SYSTEM": "/dev/null"}
+        subprocess.run(["git", "init", "-q"], cwd=tmpdir, check=True, env=env)
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(left or "")
+        subprocess.run(["git", "add", "LICENSE"], cwd=tmpdir, check=True, env=env)
+        subprocess.run(
+            ["git", "-c", "user.email=licensee@tpu.invalid", "-c", "user.name=licensee-tpu",
+             "commit", "-q", "-m", "left"],
+            cwd=tmpdir,
+            check=True,
+            env=env,
+        )
+        with open(path, "w", encoding="utf-8") as f:
+            f.write(right or "")
+        result = subprocess.run(
+            ["git", "diff", "--word-diff"],
+            cwd=tmpdir,
+            capture_output=True,
+            text=True,
+            env=env,
+        )
+        print(result.stdout)
+    return 0
+
+
+def cmd_diff(args) -> int:
+    from licensee_tpu_torch.project_files.license_file import LicenseFile
+
+    if args.socket:
+        print(
+            "error: diff --socket sends the diff to a `serve` worker, and "
+            "the port has no `serve` verb yet",
+            file=sys.stderr,
+        )
+        return 1
+    if not args.license:
+        print(
+            "Usage: provide a license to diff against with --license (spdx name)",
+            file=sys.stderr,
+        )
+        return 1
+
+    path = _resolve_path(args)
+    file = None
+    # diff.rb:43-47: the text on stdin where there is one, else the
+    # project's license file
+    if not sys.stdin.isatty():
+        try:
+            content = sys.stdin.read()
+        except OSError:
+            content = ""
+        if content:
+            file = LicenseFile(content, "LICENSE")
+    if file is None:
+        project = _build_project(args, path)
+        file = project.license_file
+        if file is None:
+            print("No license file found", file=sys.stderr)
+            return 1
+    return _diff(args.license, file)
+
+
+def cmd_license_path(args) -> int:
+    path = _resolve_path(args)
+    project = licensee_tpu_torch.project(path)
+    if not project.license_file:
+        return 1
+    if path.startswith("https://"):
+        print(project.license_file.path)
+    else:
+        print(os.path.abspath(os.path.join(path, project.license_file.path)))
+    return 0
+
+
+def cmd_version(_args) -> int:
+    print(licensee_tpu_torch.__version__)
+    return 0
+
+
+def cmd_help(args) -> int:
+    """The Thor-style command listing (`licensee help`; bin_spec.rb:21
+    expects a "commands:" header naming every subcommand), or with a
+    topic that command's own --help."""
+    if args.topic:
+        # argparse raises SystemExit(0) after printing the help
+        try:
+            args.parser.parse_args([args.topic, "--help"])
+        except SystemExit as exc:
+            return int(exc.code or 0)
+        return 0
+    print("Licensee commands:")
+    for choice, help_text in COMMANDS:
+        print(f"  {PROG} {choice:<24} # {help_text}")
+    return 0
 
 
 def load_corpus(source: str):
@@ -58,6 +310,11 @@ def load_corpus(source: str):
 
 
 def cmd_batch_detect(args) -> int:
+    """Classify a manifest: with --output through the pipelined, resumable
+    `BatchProject.run`; without it, the rows on stdout from one pass."""
+    if not args.manifest:
+        print("error: need a manifest (one path per line)", file=sys.stderr)
+        return 1
     if not os.path.exists(args.manifest):
         print(
             f"error: cannot read manifest: {args.manifest!r} not found",
@@ -95,7 +352,10 @@ def cmd_batch_detect(args) -> int:
     from licensee_tpu_torch.projects.batch_project import ResumeConfigError
 
     try:
-        stats = project.run(args.output, resume=not args.no_resume)
+        if args.output is None:
+            stats = _print_rows(project)
+        else:
+            stats = project.run(args.output, resume=not args.no_resume)
     except OSError as exc:
         print(f"error: batch run I/O failure: {exc}", file=sys.stderr)
         return 1
@@ -109,6 +369,52 @@ def cmd_batch_detect(args) -> int:
     if args.stats:
         print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
+
+
+def _print_rows(project):
+    """`batch-detect` without --output: every row on stdout, in the
+    --output file's bytes, counted as the pipeline counts them (a read
+    failure and the 64 KiB skip are no classification), then the
+    container verdicts, grouped as the verdict file groups them."""
+    from licensee_tpu_torch.ingest import SkippedBlob
+    from licensee_tpu_torch.serve.featurize import jsonl_row
+
+    stats = project.stats
+    paths = project.paths
+    contents, results = project.classify_paths(paths)
+    rows = []
+    for path, content, result in zip(paths, contents, results):
+        error = None
+        if content is None:
+            error = "read_error"
+            stats.read_errors += 1
+        elif isinstance(content, SkippedBlob):
+            error = content.error
+            stats.skipped_oversized += 1
+        elif result.error:
+            error = result.error
+            stats.featurize_errors += 1
+        else:
+            project._count(result)
+        stats.total += 1
+        line = jsonl_row(path, result, error)
+        rows.append(line)
+        print(line)
+    ingest = project.ingest
+    if ingest is not None and (ingest.spans or ingest.subsets):
+        from licensee_tpu_torch.ingest.verdict import (
+            container_groups,
+            container_verdict,
+        )
+
+        for label, members in container_groups(ingest.spans, ingest.subsets):
+            group = [
+                (member if member is not None else paths[i],
+                 json.loads(rows[i]))
+                for i, member in members
+            ]
+            print(json.dumps(container_verdict(label, group)))
+    return stats
 
 
 def cmd_corpus_build(args) -> int:
@@ -171,25 +477,95 @@ def bounded(kind, lo):
     return parse
 
 
+PROG = "licensee-tpu-torch"
+
+# the one command table: build_parser() wires each entry into argparse
+# and cmd_help() prints it (bin/licensee:10-43's Thor listing); the
+# reference's verbs keep the JAX package's texts
+COMMANDS = (
+    ("detect", "Detect the license of the given project"),
+    ("diff", "Compare license text to a known license"),
+    ("license-path", "Path to the project's license file"),
+    ("version", "Print the version"),
+    ("help", "Describe available commands"),
+    ("batch-detect", "Classify a manifest of files on the GPU batch path"),
+    ("corpus-build", "Compile a corpus into a fingerprinted artifact"),
+)
+_COMMAND_HELP = dict(COMMANDS)
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        prog="licensee-tpu-torch",
-        description="License detection on the PyTorch/CUDA port",
+        prog=PROG, description="Detect the license of a project"
     )
-    sub = parser.add_subparsers(dest="command", required=True)
+    parser.add_argument(
+        "--remote",
+        action="store_true",
+        help="Assume PATH is a GitHub owner/repo path",
+    )
+    sub = parser.add_subparsers(dest="command")
+
+    def add_common(p):
+        p.add_argument("path", nargs="?", default=None)
+        p.add_argument("--packages", action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--readme", action=argparse.BooleanOptionalAction, default=True)
+        p.add_argument("--remote", action="store_true")
+        p.add_argument("--ref", default=None)
+
+    detect = sub.add_parser("detect", help=_COMMAND_HELP["detect"])
+    add_common(detect)
+    detect.add_argument("--json", action="store_true")
+    detect.add_argument(
+        "--confidence", type=float, default=licensee_tpu_torch.CONFIDENCE_THRESHOLD
+    )
+    detect.add_argument("--license", default=None)
+    detect.add_argument("--diff", action="store_true")
+    detect.set_defaults(func=cmd_detect)
+
+    diff = sub.add_parser("diff", help=_COMMAND_HELP["diff"])
+    add_common(diff)
+    diff.add_argument("--license", default=None)
+    diff.add_argument(
+        "--socket", default=None, metavar="PATH|HOST:PORT",
+        help=(
+            "Diff over the wire instead of locally: one {\"op\": "
+            "\"diff\"} round trip to a live serve worker (closest "
+            "template when --license is omitted)"
+        ),
+    )
+    diff.add_argument(
+        "--timeout", type=float, default=30.0,
+        help="Wire diff round-trip timeout in seconds (default 30)",
+    )
+    diff.set_defaults(func=cmd_diff)
+
+    lp = sub.add_parser("license-path", help=_COMMAND_HELP["license-path"])
+    add_common(lp)
+    lp.set_defaults(func=cmd_license_path)
+
+    version = sub.add_parser("version", help=_COMMAND_HELP["version"])
+    version.set_defaults(func=cmd_version)
+
+    help_cmd = sub.add_parser("help", help=_COMMAND_HELP["help"])
+    help_cmd.add_argument("topic", nargs="?", default=None)
+    help_cmd.set_defaults(func=cmd_help, parser=parser)
+
     batch = sub.add_parser(
-        "batch-detect", help="Classify a manifest of files on the GPU"
+        "batch-detect", help=_COMMAND_HELP["batch-detect"]
     )
     batch.add_argument(
-        "manifest",
+        "manifest", nargs="?", default=None,
         help=(
             "File with one entry per line: a path, or a local container "
             "member (archive.tar::LICENSE, archive.zip::*, repo.git::HEAD)"
         ),
     )
     batch.add_argument(
-        "--output", required=True,
-        help="Write the JSONL rows here (resumable)",
+        "--output", default=None,
+        help=(
+            "Write the JSONL rows here through the pipelined, resumable "
+            "run (without it, the rows go to stdout)"
+        ),
     )
     batch.add_argument(
         "--no-resume", action="store_true",
@@ -295,8 +671,7 @@ def build_parser() -> argparse.ArgumentParser:
     batch.set_defaults(func=cmd_batch_detect)
 
     corpus_build = sub.add_parser(
-        "corpus-build",
-        help="Compile a corpus into a fingerprinted artifact",
+        "corpus-build", help=_COMMAND_HELP["corpus-build"]
     )
     corpus_build.add_argument(
         "--corpus", default="vendored",
@@ -322,11 +697,24 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     corpus_build.set_defaults(func=cmd_corpus_build)
+
+    if set(sub.choices) != {name for name, _ in COMMANDS}:
+        raise AssertionError(
+            f"COMMANDS out of sync with parser: {sorted(sub.choices)} "
+            f"vs {[name for name, _ in COMMANDS]}"
+        )
     return parser
 
 
 def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = build_parser()
+    # detect is the default command (bin/licensee:12): anything that
+    # does not name a command is detect's path and flags
+    known_commands = {name for name, _ in COMMANDS} | {"-h", "--help"}
+    if not argv or argv[0] not in known_commands:
+        argv = ["detect", *argv]
+    args = parser.parse_args(argv)
     return args.func(args)
 
 

@@ -24,6 +24,14 @@ class LicenseField:
     def key(self) -> str:
         return self.name
 
+    @property
+    def label(self) -> str:
+        # reference: license_field.rb:56-58
+        return self.key.replace("fullname", "full name", 1).capitalize()
+
+    def __str__(self) -> str:
+        return self.label
+
     def __repr__(self) -> str:
         return f"<LicenseField name={self.name}>"
 
@@ -32,6 +40,10 @@ class LicenseField:
 
     def __hash__(self) -> int:
         return hash(("LicenseField", self.name))
+
+    @property
+    def raw_text(self) -> str:
+        return f"[{self.key}]"
 
     @staticmethod
     @functools.cache
@@ -46,6 +58,27 @@ class LicenseField:
     @functools.cache
     def keys() -> tuple[str, ...]:
         return tuple(f.key for f in LicenseField.all())
+
+    @staticmethod
+    def find(key: str) -> "LicenseField | None":
+        for f in LicenseField.all():
+            if f.key == key:
+                return f
+        return None
+
+    @staticmethod
+    def from_array(keys) -> list["LicenseField"]:
+        return [LicenseField.find(k) for k in keys]
+
+    @staticmethod
+    def from_content(content: str | None) -> list["LicenseField"]:
+        """All fields referenced in a license body, with duplicates, in order
+        of appearance (reference: license_field.rb:44-48)."""
+        if not content:
+            return []
+        return LicenseField.from_array(
+            m.group(1) for m in field_regex().finditer(content)
+        )
 
 
 @functools.cache

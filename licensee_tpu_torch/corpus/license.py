@@ -5,10 +5,9 @@ choosealicense templates plus the `other` / `no-license` pseudo-licenses
 (49 keys total), synthesizes per-license title regexes, and exposes
 the corpus-wide title regex used by the normalization engine's title strip.
 
-The port's copy of `licensee_tpu/corpus/license.py`, with what the batch
-path needs, the Reference matcher's source/reference regexes included:
-the rules table (`rules.yml`), the other predicates and the hash
-serialization wait for the `detect` slice (ROADMAP A).
+The port's copy of `licensee_tpu/corpus/license.py`: the batch path's
+title, source and reference regexes, and `detect`'s rules (`rules.yml`,
+read by `corpus/yamlite.py`), fields and hash serialization.
 """
 
 from __future__ import annotations
@@ -19,9 +18,14 @@ import os
 import re
 
 from licensee_tpu_torch import vendor_paths
+from licensee_tpu_torch.corpus.fields import LicenseField, field_regex
 from licensee_tpu_torch.corpus.meta import LicenseMeta
+from licensee_tpu_torch.corpus.rules import LicenseRules
 from licensee_tpu_torch.normalize.pipeline import NormalizedContent
 from licensee_tpu_torch.rubytext import rb, regexp_escape
+
+DOMAIN = "http://choosealicense.com"
+
 
 class InvalidLicense(ValueError):
     pass
@@ -94,6 +98,18 @@ class License(NormalizedContent):
                 return lic
         return None
 
+    find_by_key = find
+
+    @staticmethod
+    def find_by_title(title: str) -> "License | None":
+        for lic in License.all(hidden=True, pseudo=False):
+            pattern = rb(
+                r"\A(the )?(?:" + lic.title_regex_pattern + r")( license)?\Z", i=True
+            )
+            if pattern.match(title):
+                return lic
+        return None
+
     # -- metadata --
 
     @property
@@ -125,6 +141,22 @@ class License(NormalizedContent):
     @property
     def nickname(self):
         return self.meta.nickname
+
+    @property
+    def description(self):
+        return self.meta.description
+
+    @property
+    def conditions(self):
+        return self.meta.conditions
+
+    @property
+    def permissions(self):
+        return self.meta.permissions
+
+    @property
+    def limitations(self):
+        return self.meta.limitations
 
     @property
     def featured_q(self) -> bool:
@@ -200,6 +232,10 @@ class License(NormalizedContent):
         return cached
 
     @property
+    def title_regex(self) -> re.Pattern:
+        return rb(self.title_regex_pattern)
+
+    @property
     def source_regex_pattern(self) -> str | None:
         """Pattern matching the license source URL with http(s)/www/suffix
         variations (license.rb:185-194)."""
@@ -229,6 +265,12 @@ class License(NormalizedContent):
             self.__dict__["_reference_regex"] = cached
         return cached
 
+    # -- predicates (license.rb:196-231) --
+
+    @property
+    def other_q(self) -> bool:
+        return self.key == "other"
+
     @property
     def gpl_q(self) -> bool:
         return self.key in ("gpl-2.0", "gpl-3.0")
@@ -240,6 +282,8 @@ class License(NormalizedContent):
     @property
     def creative_commons_q(self) -> bool:
         return self.key.startswith("cc-")
+
+    cc_q = creative_commons_q
 
     @property
     def pseudo_license(self) -> bool:
@@ -253,11 +297,24 @@ class License(NormalizedContent):
         return parts[1] if parts and parts[1] else None
 
     @property
-    def rules(self):
-        raise NotImplementedError(
-            "license rules (rules.yml) wait for the detect slice "
-            "(ROADMAP A, `detect`)"
-        )
+    def url(self) -> str:
+        return f"{DOMAIN}/licenses/{self.key}/"
+
+    @property
+    def rules(self) -> LicenseRules:
+        cached = self.__dict__.get("_rules")
+        if cached is None:
+            cached = LicenseRules.from_meta(self.meta)
+            self.__dict__["_rules"] = cached
+        return cached
+
+    @property
+    def fields(self) -> list[LicenseField]:
+        return LicenseField.from_content(self.content)
+
+    @property
+    def content_for_mustache(self) -> str:
+        return field_regex().sub(lambda m: "{{{" + m.group(1) + "}}}", self.content)
 
     @property
     def spdx_alt_segments(self) -> int:
@@ -300,7 +357,7 @@ class License(NormalizedContent):
         parts = self._parts()
         return parts[0] if parts else None
 
-    # -- dunder --
+    # -- dunder / serialization --
 
     def __eq__(self, other) -> bool:
         return isinstance(other, License) and self.key == other.key
@@ -310,6 +367,24 @@ class License(NormalizedContent):
 
     def __repr__(self) -> str:
         return f"<License key={self.key}>"
+
+    def __str__(self) -> str:
+        return self.content or ""
+
+    def to_h(self) -> dict:
+        # license.rb:104-106 HASH_METHODS
+        return {
+            "key": self.key,
+            "spdx_id": self.spdx_id,
+            "meta": self.meta.to_h(),
+            "url": self.url,
+            "rules": self.rules.to_h(),
+            "fields": [{"name": f.name, "description": f.description} for f in self.fields],
+            "other": self.other_q,
+            "gpl": self.gpl_q,
+            "lgpl": self.lgpl_q,
+            "cc": self.cc_q,
+        }
 
 
 @functools.cache

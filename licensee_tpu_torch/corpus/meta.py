@@ -66,3 +66,17 @@ class LicenseMeta:
     @property
     def hidden_q(self) -> bool:
         return bool(self.hidden)
+
+    def __getitem__(self, key):
+        if key == "spdx-id":
+            key = "spdx_id"
+        return getattr(self, key, None)
+
+    def get(self, key, default=None):
+        value = self[key]
+        return default if value is None else value
+
+    def to_h(self) -> dict:
+        # reference: license_meta.rb HASH_METHODS = members - excluded
+        excluded = {"conditions", "permissions", "limitations", "spdx_id"}
+        return {m: getattr(self, m) for m in MEMBERS if m not in excluded}

@@ -446,6 +446,7 @@ class BatchClassifier:
     def prepare_batch(
         self,
         contents: list[str | bytes],
+        prefilter: bool = True,
         filenames: list[str | None] | None = None,
         preset: list | None = None,
         routes: list | None = None,
@@ -460,7 +461,9 @@ class BatchClassifier:
         filename dispatch.  ``preset`` pre-assigns result rows (the
         dedupe cache's hits) so those blobs skip featurization and the
         device.  A blob whose featurization raises gets an ``error`` row
-        and the rest of the batch proceeds.
+        and the rest of the batch proceeds.  ``prefilter=False`` skips the
+        Copyright and Exact short-circuits, so that every blob reaches
+        the scorer (the DiceXLA matcher, whose chain has run them).
 
         In readme mode each blob is first cut to its License section
         (`ReadmeFile.license_content`, after the HTML->markdown step for
@@ -581,11 +584,11 @@ class BatchClassifier:
                         continue
                     done[i] = 1
                     flags = int(meta[j, 2])
-                    if flags & 1:
+                    if prefilter and flags & 1:
                         results[i] = BlobResult("no-license", "copyright", 100.0)
                         continue
                     h = hashes[j].tobytes()
-                    if h in self._exact_hashes:
+                    if prefilter and h in self._exact_hashes:
                         key = self._confirm_exact(h, bits[i], int(meta[j, 0]))
                         if key is not None:
                             results[i] = BlobResult(key, "exact", 100.0)
@@ -602,7 +605,7 @@ class BatchClassifier:
                     try:
                         self._prepare_one_native(
                             raw, results, bits, n_words, lengths, cc_fp, i,
-                            html=html[i],
+                            prefilter=prefilter, html=html[i],
                         )
                     except native_pipeline.NativeResourceError:
                         # PCRE2 hit a match/depth limit on this blob;
@@ -610,12 +613,12 @@ class BatchClassifier:
                         # the pure-Python pipeline (same answer, slower)
                         self._prepare_one_python(
                             raw, results, bits, n_words, lengths, cc_fp, i,
-                            html=html[i],
+                            prefilter=prefilter, html=html[i],
                         )
                 else:
                     self._prepare_one_python(
                         raw, results, bits, n_words, lengths, cc_fp, i,
-                        html=html[i],
+                        prefilter=prefilter, html=html[i],
                     )
             except Exception as exc:  # noqa: BLE001 — per-blob containment
                 results[i] = BlobResult(
@@ -726,7 +729,8 @@ class BatchClassifier:
         return route if score > 0 else None
 
     def _prepare_one_python(
-        self, raw, results, bits, n_words, lengths, cc_fp, i, html=False,
+        self, raw, results, bits, n_words, lengths, cc_fp, i, prefilter=True,
+        html=False,
     ) -> None:
         """The pure-Python twin of `_prepare_one_native`: the path where
         the native library is absent or failed this blob over.  ``html``
@@ -734,10 +738,11 @@ class BatchClassifier:
         only re-arms NormalizedContent's own stage-ordered _strip_html."""
         blob = NormalizedBlob(raw, filename="x.html" if html else None)
         content = blob.content or ""
-        if COPYRIGHT_FULL_REGEX.search(ruby_strip(content)):
+        if prefilter and COPYRIGHT_FULL_REGEX.search(ruby_strip(content)):
             results[i] = BlobResult("no-license", "copyright", 100.0)
             return
-        if blob.wordset is not None and blob.wordset in self._exact_map:
+        if (prefilter and blob.wordset is not None
+                and blob.wordset in self._exact_map):
             results[i] = BlobResult(
                 self._exact_map[blob.wordset], "exact", 100.0
             )
@@ -746,7 +751,8 @@ class BatchClassifier:
         cc_fp[i] = bool(CC_FALSE_POSITIVE_REGEX.search(ruby_strip(content)))
 
     def _prepare_one_native(
-        self, raw, results, bits, n_words, lengths, cc_fp, i, html=False,
+        self, raw, results, bits, n_words, lengths, cc_fp, i, prefilter=True,
+        html=False,
     ) -> None:
         """One blob the batch crossing could not take, on the per-blob
         native calls (raises NativeResourceError for the Python path)."""
@@ -768,10 +774,10 @@ class BatchClassifier:
             )
         else:
             _, nw, ln, flags, h = feat
-        if flags & 1:
+        if prefilter and flags & 1:
             results[i] = BlobResult("no-license", "copyright", 100.0)
             return
-        if h in self._exact_hashes:
+        if prefilter and h in self._exact_hashes:
             # the 128-bit additive multiset hash only TRIGGERS the check;
             # the answer rests on a complete equality proof
             key = self._confirm_exact(h, bits[i], nw)
@@ -807,16 +813,19 @@ class BatchClassifier:
         self,
         contents: list[str | bytes],
         threshold: float | None = None,
+        prefilter: bool = True,
         filenames: list[str | None] | None = None,
         routes: list | None = None,
     ) -> list[BlobResult]:
+        # the default, never the facade's global: a caller that wants
+        # that (the DiceXLA matcher) passes it
         threshold = (
-            licensee_tpu_torch.confidence_threshold()
+            licensee_tpu_torch.CONFIDENCE_THRESHOLD
             if threshold is None
             else threshold
         )
         prepared = self.prepare_batch(
-            contents, filenames=filenames, routes=routes
+            contents, prefilter=prefilter, filenames=filenames, routes=routes
         )
         outs = self.dispatch_chunks(prepared)
         self.finish_chunks(prepared, outs, threshold)

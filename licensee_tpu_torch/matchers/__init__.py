@@ -1,13 +1,19 @@
-"""The matchers the batch path's readme and package chains run.
+"""Detection-strategy plugin registry.
 
-The port's copy of `licensee_tpu/matchers/` for `batch-detect`: the
-package-manifest matchers and the Reference matcher.  Copyright, Exact
-and Dice run inside `BatchClassifier` as batched pre-filters and the
-device scorer; the per-file matcher classes of `detect` wait for that
-slice (ROADMAP A).
+Parity target: `lib/licensee/matchers.rb`, as `licensee_tpu/matchers/`
+carries it: each matcher wraps a candidate file and reports (license,
+confidence).  `detect` runs Copyright -> Exact -> Dice per file; the
+batch path runs the same chain as batched pre-filters and the device
+scorer inside `BatchClassifier`, and plugs into this registry as
+``DiceXLA``.
 """
 
 from licensee_tpu_torch.matchers.base import Matcher
+from licensee_tpu_torch.matchers.copyright_matcher import Copyright
+from licensee_tpu_torch.matchers.exact import Exact
+from licensee_tpu_torch.matchers.dice import Dice
+from licensee_tpu_torch.matchers.dice_xla_matcher import DiceXLA
+from licensee_tpu_torch.matchers.reference_matcher import Reference
 from licensee_tpu_torch.matchers.package import (
     Cabal,
     Cargo,
@@ -19,10 +25,13 @@ from licensee_tpu_torch.matchers.package import (
     Package,
     Spdx,
 )
-from licensee_tpu_torch.matchers.reference_matcher import Reference
 
 __all__ = [
     "Matcher",
+    "Copyright",
+    "Exact",
+    "Dice",
+    "DiceXLA",
     "Reference",
     "Package",
     "Gemspec",

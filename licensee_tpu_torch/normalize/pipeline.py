@@ -487,3 +487,7 @@ def wrap(text: str | None, line_width: int = 80) -> str | None:
         else:
             lines.append(ruby_strip(fill.sub(lambda m: m.group(1) + "\n", line)))
     return ruby_strip("\n".join(lines))
+
+
+def format_percent(value: float) -> str:
+    return f"{value:.2f}%"

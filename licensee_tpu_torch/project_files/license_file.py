@@ -1,15 +1,17 @@
-"""LICENSE-style file regexes and filename scores the batch chain needs.
+"""LICENSE-style files: filename scoring + Copyright/Exact/Dice chain.
 
 Parity target: `lib/licensee/project_files/license_file.rb`, as
 `licensee_tpu/project_files/license_file.py` carries it: the 19-entry
 ordered filename score table (what ``--mode auto`` routes by), the CC
-false-positive guard and the copyright? filename gate.  The per-file
-matcher chain of `LicenseFile` waits for the `detect` slice (ROADMAP A).
+false-positive guard, the copyright? filename gate, attribution
+extraction, and the unmatched-but-scored -> `other` fallback.
 """
 
 from __future__ import annotations
 
-from licensee_tpu_torch.rubytext import rb
+from licensee_tpu_torch.normalize.pipeline import COPYRIGHT_REGEX, NormalizedContent
+from licensee_tpu_torch.project_files.project_file import ProjectFile
+from licensee_tpu_torch.rubytext import rb, ruby_strip
 
 # license_file.rb:8-30 filename building blocks
 PREFERRED_EXT = ("md", "markdown", "txt", "html")
@@ -48,7 +50,8 @@ FILENAME_SCORES = [
 ]
 
 # the copyright? filename test (project_file.rb:94): a COPYRIGHT(.ext)
-# file — the batch attribution gate and the dedupe key use it
+# file — ProjectFile.is_copyright, the batch attribution gate and the
+# dedupe key use it
 COPYRIGHT_NAME_REGEX = rb(
     r"\Acopyright(?:" + OTHER_EXT_REGEX + r")?\Z", i=True
 )
@@ -59,9 +62,59 @@ CC_FALSE_POSITIVE_REGEX = rb(
 )
 
 
-class LicenseFile:
-    """The LICENSE-file class of the reference, as far as the batch path
-    reads it: its filename score."""
+class LicenseFile(NormalizedContent, ProjectFile):
+    @property
+    def possible_matchers(self) -> list:
+        from licensee_tpu_torch.matchers import Copyright, Dice, Exact
+
+        return [Copyright, Exact, Dice]
+
+    @property
+    def attribution(self) -> str | None:
+        """The copyright/attribution line, when the matched license carries a
+        [fullname] field (license_file.rb:71-77)."""
+        cached = self.__dict__.get("_attribution")
+        if cached is None:
+            cached = None
+            license = self.license
+            applicable = self.is_copyright or (
+                license is not None
+                and license.content is not None
+                and "[fullname]" in license.content
+            )
+            if applicable:
+                m = COPYRIGHT_REGEX.search(self.content_without_title_and_version)
+                cached = m.group(0) if m else None
+            self.__dict__["_attribution"] = cached
+        return cached
+
+    @property
+    def potential_false_positive(self) -> bool:
+        return bool(CC_FALSE_POSITIVE_REGEX.search(ruby_strip(self.content or "")))
+
+    @property
+    def is_lgpl(self) -> bool:
+        return LicenseFile.lesser_gpl_score(self.filename) == 1 and bool(
+            self.license and self.license.lgpl_q
+        )
+
+    @property
+    def is_gpl(self) -> bool:
+        return bool(self.license and self.license.gpl_q)
+
+    @property
+    def license(self):
+        """A scored license file that fails all matchers is still 'other' —
+        it looked like a license but we couldn't identify it
+        (license_file.rb:92-98)."""
+        from licensee_tpu_torch.corpus.license import License
+
+        if self.matcher and self.matcher.match:
+            return self.matcher.match
+        return License.find("other")
+
+    def _serialized_content_normalized(self):
+        return self.content_normalized()
 
     @staticmethod
     def name_score(filename: str) -> float:
@@ -69,3 +122,8 @@ class LicenseFile:
             if regex.search(filename):
                 return score
         return 0.0
+
+    @staticmethod
+    def lesser_gpl_score(filename: str | None) -> int:
+        """COPYING.lesser gets LGPL priority (license_file.rb:105-107)."""
+        return 1 if filename is not None and filename.lower() == "copying.lesser" else 0

@@ -9,16 +9,10 @@ from __future__ import annotations
 
 import os
 
-from licensee_tpu_torch.project_files.project_file import sanitize_content
+from licensee_tpu_torch.project_files.project_file import ProjectFile
 
 
-class PackageManagerFile:
-    def __init__(self, content: str | bytes | None, filename: str | None):
-        self.content = (
-            sanitize_content(content) if content is not None else None
-        )
-        self.filename = filename
-
+class PackageManagerFile(ProjectFile):
     @property
     def possible_matchers(self) -> list:
         from licensee_tpu_torch import matchers
@@ -37,16 +31,6 @@ class PackageManagerFile:
         }
         ext = os.path.splitext(self.filename or "")[1]
         return ext_map.get(ext) or name_map.get(self.filename) or []
-
-    @property
-    def matcher(self):
-        """The first matcher in the chain that produces a match
-        (project_file.rb:65-71)."""
-        for matcher_cls in self.possible_matchers:
-            candidate = matcher_cls(self)
-            if candidate.match:
-                return candidate
-        return None
 
     FILENAMES_SCORES = {
         "package.json": 1.0,

@@ -1,4 +1,4 @@
-"""README files: the filename score and the "## License" section.
+"""README files: extract the "## License" section and match it.
 
 Parity target: `lib/licensee/project_files/readme_file.rb`, as
 `licensee_tpu/project_files/readme_file.py` carries it: filename scores
@@ -6,12 +6,14 @@ and the header lookbehind/lookahead content regex (markdown `#`, rdoc
 `=`, and underlined headers).  `license_content` runs the regex's two
 halves as two linear scans behind a `licen` substring check, which gives
 the one-shot `CONTENT_REGEX`'s section (the JAX package's tests pin the
-two forms to each other); the Reference matcher the readme chain
-appends runs in `kernels/batch.py` as the post-Dice fallback.
+two forms to each other).  `ReadmeFile`'s chain is the license file's
+with the Reference matcher appended; the batch path runs that fallback
+in `kernels/batch.py` after Dice.
 """
 
 from __future__ import annotations
 
+from licensee_tpu_torch.project_files.license_file import LicenseFile
 from licensee_tpu_torch.rubytext import rb, ruby_strip
 
 EXTENSIONS = ("md", "markdown", "mdown", "txt", "rdoc", "rst")
@@ -46,9 +48,12 @@ _HEADING_REGEX = rb(r"^" + _HEADING_SRC + r"$", i=True)
 _NEXT_SECTION_REGEX = rb(r"^" + _NEXT_SRC, i=True)
 
 
-class ReadmeFile:
-    """The README class of the reference, as far as the batch path reads
-    it: its filename score and its license section."""
+class ReadmeFile(LicenseFile):
+    @property
+    def possible_matchers(self) -> list:
+        from licensee_tpu_torch.matchers import Reference
+
+        return super().possible_matchers + [Reference]
 
     @staticmethod
     def name_score(filename: str) -> float:

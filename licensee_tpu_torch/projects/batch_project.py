@@ -48,7 +48,11 @@ from dataclasses import dataclass, field, replace
 import licensee_tpu_torch
 from licensee_tpu_torch.kernels.batch import BatchClassifier
 from licensee_tpu_torch.obs.pipeline import PipelineLanes
-from licensee_tpu_torch.serve.featurize import jsonl_row, produce_batch
+from licensee_tpu_torch.serve.featurize import (
+    jsonl_row,
+    produce_batch,
+    read_capped,
+)
 
 __all__ = ["BatchProject", "BatchStats", "ResumeConfigError"]
 
@@ -203,8 +207,9 @@ class BatchProject:
             self.close()
             raise
         self.batch_size = batch_size
+        # the default, never the facade's global (`detect` sets that)
         self.threshold = (
-            licensee_tpu_torch.confidence_threshold()
+            licensee_tpu_torch.CONFIDENCE_THRESHOLD
             if threshold is None
             else threshold
         )
@@ -708,6 +713,55 @@ class BatchProject:
         stats.featurize_errors += featurize_errors
         stats.dedupe_hits += dedupe_hits
         stats.skipped_oversized += skipped_oversized
+
+    def classify_paths(self, paths: list[str]):
+        """Route, read, classify and (with attribution) attribute
+        ``paths`` in one pass without the pipeline: the CLI's path
+        without --output.  Returns (contents, results); a row's content
+        is None where the read failed, a SkippedBlob where the reader
+        refused it (the 64 KiB cap), b"" where auto routing skipped the
+        read.  The classifier runs its own chunks of ``batch_size``."""
+        if self.ingest is not None and paths is self.paths:
+            filenames = list(self.ingest.filenames)
+        else:
+            filenames = [os.path.basename(p) for p in paths]
+        routes = None
+        if self.mode == "auto":
+            routes = [BatchClassifier.route_for(f) for f in filenames]
+            for r in routes:
+                self.stats.add_route(r)
+        if self.ingest is not None and paths is self.paths:
+            # container reads go by index (display names repeat across
+            # containers); only the project's own path list has it
+            def read(i, _p):
+                return self.ingest.read_at(i)
+        else:
+            def read(_i, p):
+                return read_capped(p)
+        contents = [
+            read(i, p) if routes is None or routes[i] is not None else b""
+            for i, p in enumerate(paths)
+        ]
+        results = self.classifier.classify_blobs(
+            [c if isinstance(c, (bytes, str)) else b"" for c in contents],
+            threshold=self.threshold,
+            filenames=filenames,
+            routes=routes,
+        )
+        if self.attribution:
+            for i, r in enumerate(results):
+                if (
+                    isinstance(contents[i], (bytes, str))
+                    and not r.error
+                    and r.key is not None
+                ):
+                    r.attribution = self.classifier.attribution_for(
+                        contents[i],
+                        filenames[i],
+                        r,
+                        route=routes[i] if routes is not None else None,
+                    )
+        return contents, results
 
     def _route_name(self, path: str) -> str:
         """The filename the attribution gate reads: the member's

@@ -6,15 +6,17 @@ The port's counterpart of the backends of
 reader (`native/gitodb.py`) where it builds, git's plumbing commands
 otherwise.  Blob loads are capped at ``MAX_LICENSE_SIZE`` bytes like the
 reference's (git_project.rb:53): a blob past the cap is skipped, never
-truncated and scored.  The batch path's git containers
-(`ingest/sources.py`) read through them; ``GitProject`` itself, the
-``detect`` verb's project, waits for a later slice (ROADMAP A).
+truncated and scored.  `GitProject` is `detect`'s project over a
+repository's root tree; the batch path's git containers
+(`ingest/sources.py`) read through the same backends.
 """
 
 from __future__ import annotations
 
 import os
 import subprocess
+
+from licensee_tpu_torch.projects.project import Project
 
 MAX_LICENSE_SIZE = 64 * 1024
 
@@ -133,9 +135,16 @@ class _SubprocessBackend:
         return None if len(data) > MAX_LICENSE_SIZE else data
 
 
-class GitProject:
-    """The part of the JAX package's ``GitProject`` the batch path uses:
-    the choice of backend."""
+class GitProject(Project):
+    def __init__(self, repo: str, revision: str | None = None, **args):
+        self.repo_path = repo
+        self.revision = revision
+
+        if not os.path.isdir(repo):
+            raise InvalidRepository(repo)
+
+        self._backend = self._open_backend(repo, revision)
+        super().__init__(**args)
 
     @staticmethod
     def _open_backend(repo: str, revision: str | None):
@@ -154,3 +163,21 @@ class GitProject:
             if backend is not None:
                 backend.close()
             return _SubprocessBackend(repo, revision)
+
+    def close(self) -> None:
+        self._backend.close()
+
+    def files(self) -> list[dict]:
+        """Root-tree blob entries of the target commit
+        (git_project.rb:64-76: only type == :blob, root level)."""
+        cached = self.__dict__.get("_files")
+        if cached is None:
+            cached = self._backend.files()
+            self.__dict__["_files"] = cached
+        return cached
+
+    def load_file(self, file: dict) -> bytes | None:
+        """Blob bytes, or None for a blob past the MAX_LICENSE_SIZE
+        cap (skipped, never truncated and scored: the Project layer
+        drops skipped candidates)."""
+        return self._backend.load_file(file)

@@ -112,8 +112,14 @@ def test_content_hash_matches_jax(key):
 
 
 def test_license_rules_wait_for_a_later_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        License.find("mit").rules
+    """The rules came with the `detect` slice: `License.rules` reads
+    rules.yml through the port's reader and gives the JAX package's
+    table (tests/test_torch_detect.py holds every license's)."""
+    from licensee_tpu.corpus.license import License as JaxLicense
+
+    rules = License.find("mit").rules
+    assert rules.to_h() == JaxLicense.find("mit").rules.to_h()
+    assert [r.tag for r in rules["conditions"]] == ["include-copyright"]
 
 
 def test_corpus_from_numpy_round_trips():

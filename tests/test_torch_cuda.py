@@ -172,6 +172,69 @@ def test_fused_k1_ties_and_exclusions(card, B, T):
     assert (idx == 0).all() and (num == -1).all() and (den == 1).all()
 
 
+# the batches `detect`'s DiceXLA matcher (one file a call) and small
+# stdout `batch-detect` runs give K1: far below a 64-row block, where the
+# template splits fill the card and one ticket serves the split merge
+DETECT_B = [1, 2, 7, 8, 9, 16, 17, 63, 64, 65]
+
+
+@pytest.mark.parametrize("T, W", [(47, 112), (608, 132)])
+@pytest.mark.parametrize("B", DETECT_B)
+def test_fused_k1_at_detect_batches(card, B, T, W):
+    """K1's first-max against its plain version at the small batches, on
+    random bits, on blobs that are copies of templates (exact ties across
+    the split boundaries), and with every template excluded (the CC
+    guard on flagged rows, then no valid template at all)."""
+    rng = np.random.default_rng(B * 10 + T)
+    args = k1_case(card, rng, B, T, W)
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    splits, per_split, _ = dice_cuda.fused_schedule(B, T, W, n_sms)
+    assert splits > 1
+    assert_k1_matches_plain(args)
+    meta, bits, _fb, _nw, ln, _cf = args
+    dup = (torch.arange(T, device=card) % per_split) // 2 * 2
+    bits = bits[dup].contiguous()
+    meta = meta[dup].contiguous()
+    meta[:, dice_cuda.VALID] = 1
+    meta[:, dice_cuda.CC_FLAG] = 1
+    src = torch.from_numpy(rng.integers(0, T, B)).to(card)
+    fb = bits[src].contiguous()
+    nw = meta[src, dice_cuda.N_WF].contiguous()
+    cf = torch.zeros(B, dtype=torch.bool, device=card)
+    cf[::2] = True
+    idx, num, den = assert_k1_matches_plain((meta, bits, fb, nw, ln, cf))
+    assert (idx[cf] == 0).all() and (num[cf] == -1).all()
+    assert (den[cf] == 1).all() and (idx[~cf] % 2 == 0).all()
+    meta[:, dice_cuda.VALID] = 0
+    idx, num, den = assert_k1_matches_plain((meta, bits, fb, nw, ln, cf))
+    assert (idx == 0).all() and (num == -1).all() and (den == 1).all()
+
+
+def test_dice_xla_on_the_card_matches_dice(card):
+    """The DiceXLA matcher on the card (its default device) gives the
+    scalar Dice's (key, confidence) on every fixture's license file, one
+    `best_match_fused` launch a file."""
+    from licensee_tpu_torch.matchers import Dice, DiceXLA, dice_xla_matcher
+    from licensee_tpu_torch.projects import FSProject
+
+    dice_xla_matcher.use_device("cuda")
+    dice_cuda.reset_launches()
+    n_files = 0
+    for name in sorted(os.listdir(FIXTURES)):
+        if not os.path.isdir(os.path.join(FIXTURES, name)):
+            continue
+        lf = FSProject(os.path.join(FIXTURES, name), detect_packages=False,
+                       detect_readme=False).license_file
+        if lf is None:
+            continue
+        dice, xla = Dice(lf), DiceXLA(lf)
+        assert (xla.match, xla.confidence) == (dice.match, dice.confidence)
+        n_files += 1
+    assert n_files > 40
+    assert dice_cuda.LAUNCHES["best_match_fused"] == n_files
+    assert dice_xla_matcher._shared_classifier().device.type == "cuda"
+
+
 def test_wrappers_refuse_what_the_kernels_cannot_take(card):
     ct = convert.corpus_tensors(default_corpus(), card)
     meta = dice_cuda.pack_meta(ct)

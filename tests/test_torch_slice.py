@@ -168,7 +168,8 @@ def test_auto_resolves_by_template_count():
 
 def test_port_imports_no_jax_yaml_or_jax_package():
     """Every module of the port, and chip_smoke.py, in a fresh process,
-    with the port's native pipeline and scanners loaded: no JAX, no
+    with the port's native pipeline and scanners loaded and `detect`'s
+    chain run (rules, fields, the matchers' lazy imports): no JAX, no
     PyYAML, nothing of `licensee_tpu`, and no library built inside it."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -181,6 +182,12 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "from licensee_tpu_torch.kernels.batch import BatchClassifier\n"
         "assert pipeline.load() and textops.load()\n"
         "assert BatchClassifier(device=None)._nat is pipeline.load()\n"
+        "from licensee_tpu_torch.matchers import dice_xla_matcher\n"
+        "dice_xla_matcher.use_device('cpu')\n"
+        "p = licensee_tpu_torch.project('tests/fixtures/mit', "
+        "detect_packages=True, detect_readme=True)\n"
+        "assert p.to_h()['licenses'][0]['rules']['permissions']\n"
+        "assert dice_xla_matcher.DiceXLA(p.license_file).confidence > 98\n"
         "maps = open('/proc/self/maps').read()\n"
         "assert '/licensee_tpu/native/' not in maps, 'a JAX-side library'\n"
         "assert '/build/licensee_tpu_torch/native/_pipeline.so' in maps\n"
@@ -201,9 +208,17 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "'licensee_tpu_torch.ingest.sources', "
         "'licensee_tpu_torch.ingest.verdict', "
         "'licensee_tpu_torch.native.gitodb', "
-        "'licensee_tpu_torch.projects.git_project'}\n"
+        "'licensee_tpu_torch.projects.git_project', "
+        "'licensee_tpu_torch.matchers', "
+        "'licensee_tpu_torch.matchers.dice_xla_matcher', "
+        "'licensee_tpu_torch.projects', "
+        "'licensee_tpu_torch.projects.project', "
+        "'licensee_tpu_torch.projects.fs_project', "
+        "'licensee_tpu_torch.projects.github_project', "
+        "'licensee_tpu_torch.corpus.rules', "
+        "'licensee_tpu_torch.cli.main'}\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
-        "sys.exit(1 if bad or len(names) < 35 or new - set(names) else 0)\n"
+        "sys.exit(1 if bad or len(names) < 45 or new - set(names) else 0)\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
