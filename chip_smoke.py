@@ -37,7 +37,9 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    k = 4 (--closest 3) and k = `K_FUSED_MAX`.  The fused K1 is also held
    bit for bit at the small batches `detect` gives it (B in `DETECT_B`,
    1 to 65, at both widths, random and ties) and timed at B=1, the
-   DiceXLA matcher's launch; K4's top-k (`topk_exact`,
+   DiceXLA matcher's launch, and at the flush sizes of `serve` (B in
+   `SERVE_B`, 127 to 256, around its schedule's changes), timed at
+   B=256, a full flush; K4's top-k (`topk_exact`,
    csrc/dice_topk.cu) on K1's planes at the four shapes with k = 4 and
    k = T, and on the ties case, whose all-excluded rows must give
    template 0 at (-1, 1) in every round.  Each is timed beside its bound
@@ -104,11 +106,48 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    whose stdout rows must equal its --output rows and the --device cpu
    stdout rows.  A timing line gives the wall time of `detect` per
    fixture and DiceXLA's per file, eager and K1's graph replay, beside
-   the card's name and power limit.
+   the card's name and power limit;
+9. serve: the micro-batcher (`serve/scheduler.py`) at the CLI's
+   defaults (warm start, --max-batch 256, --max-delay-ms 5,
+   --pipeline-depth 2) on the card: in process through `serve_session`,
+   a license session over vendored files of phase 4's kind and an auto
+   session over a mixed crawl manifest, each with repeats; over a Unix
+   socket (`UnixServer`, `serve_unix`'s server, in a thread) 64
+   closed-loop clients in a child process, each keeping 8 requests in
+   flight, send 20,000 requests, mostly distinct Dice-bound variants
+   (a test of K1 at every flush size up to 256, not a users' traffic
+   mix), and one client sends one request at a time (every flush a
+   deadline flush at B=1), at T=47 and with the 608-template corpus;
+   each socket run is sent again, the same way, to a device='cpu'
+   batcher, whose rows are the reference and whose timing stands
+   beside the card's.  Every run's
+   rows equal a device='cpu' batcher's, trace ID and cache flag aside,
+   and the sessions' verdicts equal `batch-detect`'s over the same
+   files.  Two more 64-client runs at T=47, at the interpreter's
+   default switch interval and at a tenth of it, sample where the
+   batcher's scheduler and completion threads stand (a stack sampler)
+   and read their on-CPU seconds, to split the device stage's host
+   time.  A reload to a `corpus-build` artifact of the T=608 directory
+   runs in the middle of a 64-client run (its clients in this process,
+   paced around the swap): no request errors, each row
+   under the old or the new fingerprint and equal to the CPU verdict of
+   its corpus, the cache fenced, a corrupt artifact refused.  Child
+   processes of the port's CLI run `serve --selftest`, `serve
+   --selftest-reload`, a piped `serve --stats` session and `diff
+   --socket` against the in-process worker.  Every run must have had
+   no fallback and no completion error, each bucket set up once before
+   any live flush, and `best_match_fused` launched exactly once per
+   flush, warm-up probe and reload validation, and no other kernel.  A
+   `serve timing:` line gives each run's requests/s, the p50 and p99 of
+   its total, queue_wait and device stages, its flush reasons and its
+   flushes per bucket, the host batcher's beside each socket run, the
+   two threads' split, and the card's busy share over a profiled
+   64-client run, beside the card's name and power limit.
 
 A row's ``launches`` counts its kernel over its width's card runs of
 phases 4 to 8, each run between a reset of the counts and a read (the
-B=1 row at T=47: phase 8's DiceXLA run); the planes kernel
+B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows: phase 9's runs
+at their width, the reload's at T=47); the planes kernel
 (`score_pairs_fused`) launches on no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
@@ -124,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import io
 import json
@@ -186,6 +226,16 @@ DETECT_B = (1, 2, 7, 8, 9, 16, 17, 63, 64, 65)
 DETECT_SHAPES = [
     ("B1,T47,W112", 1, 47, 112, "detect"),
     ("B1,T608,W132", 1, SPDX_T, 132, "spdx"),
+]
+# the fused K1 at the flush sizes of `serve` (its real row count, 1 to
+# 256) around its schedule's changes at T=608: a 64-row tile more at 128,
+# 192 and 256, 76 splits of 8 templates up to B=192 and 38 of 16 from
+# B=193, with a partial last tile below 256; the full flush is timed, its
+# row counting phase 9's launches at its width
+SERVE_B = (127, 128, 129, 192, 193, 255, 256)
+SERVE_SHAPES = [
+    ("B256,T47,W112", 256, 47, 112, "serve"),
+    ("B256,T608,W132", 256, SPDX_T, 132, "serve608"),
 ]
 
 FIELD_VALUES = {
@@ -655,14 +705,15 @@ def phase_kernels(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
 
 
 def small_batches(np, torch, rng, sm_clocks_per_s) -> list[dict]:
-    """The fused K1 at each of `DETECT_B` at T=47 and T=608, held bit for
-    bit against its plain version on random features and on the ties
-    case (copies of templates, exact ties across the template splits,
-    every fourth row with every template excluded); then the B=1 rows of
-    `DETECT_SHAPES`, timed."""
+    """The fused K1 at each of `DETECT_B` and `SERVE_B` at T=47 and
+    T=608, held bit for bit against its plain version on random features
+    and on the ties case (copies of templates, exact ties across the
+    template splits, every fourth row with every template excluded);
+    then the rows of `DETECT_SHAPES` (B=1) and `SERVE_SHAPES` (B=256),
+    timed."""
     from licensee_tpu_torch.kernels import dice_cuda
 
-    for B in DETECT_B:
+    for B in DETECT_B + SERVE_B:
         for T, W in ((47, 112), (SPDX_T, 132)):
             ct, feats = random_case(np, torch, rng, B, T, W)
             args = (dice_cuda.pack_meta(ct), ct.bits, *feats)
@@ -680,9 +731,10 @@ def small_batches(np, torch, rng, sm_clocks_per_s) -> list[dict]:
                 raise AssertionError(f"ties B={B} T={T}: an all-excluded "
                                      "row is not (0, -1, 1)")
     log(f"best_match_fused: bit-identical to its plain version at B in "
-        f"{list(DETECT_B)} at T=47 and T={SPDX_T}, random and ties")
+        f"{list(DETECT_B + SERVE_B)} at T=47 and T={SPDX_T}, random and "
+        f"ties")
     rows = []
-    for label, B, T, W, run in DETECT_SHAPES:
+    for label, B, T, W, run in DETECT_SHAPES + SERVE_SHAPES:
         ct, feats = random_case(np, torch, rng, B, T, W)
         rows += k1_rows(torch, label, B, T, W, run,
                         (dice_cuda.pack_meta(ct), ct.bits, *feats),
@@ -1984,10 +2036,803 @@ def phase_detect(torch, root: str, manifest: str, launches: dict) -> None:
         "the --device cpu rows")
 
 
+# -- phase 9: serve --------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class ServeScale:
+    """How much traffic phase 9 sends: the defaults on the card, `tiny`
+    for the test that runs the phase on the CPU."""
+
+    mixed_repos: int = 480      # the auto session: ~2,000 crawl files
+    vendored_files: int = 2000  # the license session
+    variants: int = 20000       # the 64-client runs at T=47
+    variants_608: int = 5000    # and at T=608
+    clients: int = 64
+    window: int = 8             # requests each client keeps in flight
+    single: int = 400           # the one-client runs
+    reload_requests: int = 6000
+    profiled: int = 5000
+
+    @classmethod
+    def tiny(cls) -> "ServeScale":
+        return cls(mixed_repos=12, vendored_files=50, variants=300,
+                   variants_608=120, clients=4, window=4, single=12,
+                   reload_requests=200, profiled=100)
+
+
+def request_line(obj: dict) -> bytes:
+    return json.dumps(obj).encode() + b"\n"
+
+
+def file_requests(paths: list) -> list:
+    """One request a readable file (raw bytes as ``content_b64``, the
+    file's basename as ``filename``), then a repeat of every seventh:
+    (request objects, {id: path})."""
+    import base64
+
+    reqs, by_id = [], {}
+    for p in paths:
+        if not os.path.exists(p):
+            continue
+        with open(p, "rb") as fh:
+            raw = fh.read()
+        rid = len(reqs)
+        by_id[rid] = p
+        reqs.append({"id": rid, "filename": os.path.basename(p),
+                     "content_b64": base64.b64encode(raw).decode()})
+    for r in reqs[::7]:
+        rid = len(reqs)
+        by_id[rid] = by_id[r["id"]]
+        reqs.append({**r, "id": rid})
+    return reqs, by_id
+
+
+def variant_requests(bases: list, n: int, tag: str) -> list:
+    """``n`` license-mode requests, nine in ten distinct Dice-bound
+    variants (a base text with a made-up word appended), every tenth a
+    repeat of an earlier one (a cache hit or a coalesced duplicate)."""
+    texts = []
+    for i in range(n):
+        if i % 10 == 9:
+            texts.append(texts[i // 2])
+        else:
+            texts.append(f"{bases[i % len(bases)][1]}\nzq{tag}{i}\n")
+    return [{"id": i, "content": t, "filename": "LICENSE"}
+            for i, t in enumerate(texts)]
+
+
+def verdict_of(row: dict) -> dict:
+    """A response row without what depends on timing: the trace ID and
+    whether a duplicate rode the cache or its twin's device slot."""
+    return {k: v for k, v in row.items() if k not in ("trace", "cached")}
+
+
+def serve_session_rows(batcher, reqs: list) -> tuple:
+    """(rows by id, seconds) of one in-process `serve_session`."""
+    from licensee_tpu_torch.serve.server import serve_session
+
+    out = []
+    lines = [json.dumps(r) for r in reqs]
+    t0 = time.perf_counter()
+    counts = serve_session(batcher, lines, out.append)
+    took = time.perf_counter() - t0
+    if counts != {"requests": len(lines), "responses": len(lines)}:
+        raise AssertionError(f"serve_session: {counts}")
+    rows = [json.loads(line) for line in out]
+    return {r["id"]: r for r in rows}, took
+
+
+def cpu_rows(reqs: list, **kwargs) -> dict:
+    """The same requests through a `device="cpu"` batcher (a queue deep
+    enough that one session never fills it): the reference rows."""
+    from licensee_tpu_torch.serve.scheduler import MicroBatcher
+
+    with MicroBatcher(device="cpu", queue_depth=len(reqs) + 1,
+                      **kwargs) as batcher:
+        rows, _s = serve_session_rows(batcher, reqs)
+    return rows
+
+
+def connect(target: str, timeout: float):
+    import socket
+
+    from licensee_tpu_torch.serve.eventloop import parse_target
+
+    kind, addr = parse_target(target)
+    sock = socket.socket(socket.AF_UNIX if kind == "unix" else socket.AF_INET,
+                         socket.SOCK_STREAM)
+    sock.settimeout(timeout)
+    sock.connect(addr)
+    return sock
+
+
+def socket_run(target: str, reqs: list, clients: int, window: int,
+               control=None, timeout: float = 120.0) -> tuple:
+    """``clients`` closed-loop clients over the socket, each on its own
+    connection sending its share of ``reqs`` ``window`` requests at a
+    time and reading their answers before it sends more.  With
+    ``control``, ``control(rows, resume)`` runs meanwhile on this thread
+    and the clients hold the last third of their shares until it calls
+    ``resume()``, so traffic flows before, during and after what it
+    does.  Returns (rows by id, seconds)."""
+    import threading
+
+    rows: dict = {}
+    errors: list = []
+    resume = threading.Event()
+    if control is None:
+        resume.set()
+
+    def client(k: int) -> None:
+        mine = reqs[k::clients]
+        try:
+            with connect(target, timeout) as sock, \
+                    sock.makefile("rwb") as fh:
+                for i in range(0, len(mine), window):
+                    if 3 * i >= 2 * len(mine) and not resume.wait(300):
+                        raise TimeoutError("control never resumed")
+                    part = mine[i:i + window]
+                    fh.write(b"".join(request_line(r) for r in part))
+                    fh.flush()
+                    for _r in part:
+                        line = fh.readline()
+                        if not line:
+                            raise ConnectionError("the worker hung up")
+                        row = json.loads(line)
+                        rows[row["id"]] = row
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(f"client {k}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if control is not None:
+        try:
+            control(rows)
+        finally:
+            resume.set()
+    for t in threads:
+        t.join(timeout=timeout)
+    took = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"socket clients: {errors[:3]}, "
+                             f"{sum(t.is_alive() for t in threads)} hung")
+    if len(rows) != len(reqs):
+        raise AssertionError(f"socket run: {len(rows)} rows for "
+                             f"{len(reqs)} requests")
+    return rows, took
+
+
+def client_process(target: str, reqs: list, clients: int, window: int,
+                   root: str, timeout: float = 900.0) -> tuple:
+    """`socket_run`'s clients in a child process (``chip_smoke.py
+    --serve-clients``), as a user's clients are: they do not share the
+    worker's interpreter lock.  Returns (rows by id, the clients'
+    seconds, the child's own start-up excluded)."""
+    src = os.path.join(root, "clients.in.jsonl")
+    dst = os.path.join(root, "clients.out.json")
+    with open(src, "wb") as fh:
+        fh.writelines(request_line(r) for r in reqs)
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--serve-clients",
+         target, src, dst, str(clients), str(window)],
+        capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"serve clients exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    with open(dst, encoding="utf-8") as fh:
+        got = json.load(fh)
+    return {r["id"]: r for r in got["rows"]}, got["seconds"]
+
+
+def serve_clients_main(target: str, src: str, dst: str, clients: str,
+                       window: str) -> int:
+    """The child of `client_process`: the requests of ``src`` (JSONL)
+    over ``target``, the rows and seconds into ``dst``."""
+    with open(src, encoding="utf-8") as fh:
+        reqs = [json.loads(line) for line in fh]
+    rows, took = socket_run(target, reqs, int(clients), int(window))
+    with open(dst, "w", encoding="utf-8") as fh:
+        json.dump({"rows": list(rows.values()), "seconds": took}, fh)
+    return 0
+
+
+@contextlib.contextmanager
+def socket_worker(batcher, root: str):
+    """`serve_unix`'s server in a thread on a socket under ``root`` (on
+    127.0.0.1 where the path would pass the AF_UNIX length limit):
+    yields its target; on exit the server shuts down, its thread is
+    joined and the socket unlinked."""
+    import threading
+
+    from licensee_tpu_torch.serve.server import UnixServer
+
+    path = os.path.join(root, f"w{os.getpid()}.sock")
+    server = UnixServer(path if len(path) < 100 else "127.0.0.1:0", batcher)
+    target = path if server.kind == "unix" else f"127.0.0.1:{server.bound_port}"
+    thread = threading.Thread(target=server.serve_forever,
+                              kwargs={"poll_interval": 0.2}, daemon=True)
+    thread.start()
+    try:
+        yield target
+    finally:
+        server.shutdown()
+        thread.join(timeout=60.0)
+        server.server_close()
+        with contextlib.suppress(OSError):
+            os.unlink(path)
+        if thread.is_alive():
+            raise AssertionError("the socket worker's thread did not end")
+
+
+def held_to_reference(what: str, rows: dict, want: dict) -> None:
+    """Every row equal to the reference row of its id, trace ID and
+    cache flag aside, and none an error."""
+    bad = [i for i in want if verdict_of(rows[i]) != verdict_of(want[i])]
+    errors = [r for r in rows.values() if r.get("error")]
+    if bad or errors:
+        raise AssertionError(
+            f"serve {what}: {len(bad)} rows differ from the device='cpu' "
+            f"batcher's (e.g. {[(rows[i], want[i]) for i in bad[:2]]}), "
+            f"{len(errors)} error rows (e.g. {errors[:2]})")
+
+
+def held_to_batch_detect(mode: str, rows: dict, by_id: dict, root: str,
+                         device: str) -> None:
+    """The session's verdicts against `batch-detect` over the same files
+    (its stdout rows: key, matcher, confidence)."""
+    paths = sorted(set(by_id.values()))
+    manifest = os.path.join(root, f"serve-{mode}.manifest")
+    with open(manifest, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(paths) + "\n")
+    rc, out, err, _s = run_verb(["batch-detect", manifest, "--mode", mode,
+                                 "--device", device])
+    if rc != 0:
+        raise RuntimeError(f"batch-detect for serve {mode}: {err[-2000:]}")
+    want = {}
+    for line in out.splitlines():
+        row = json.loads(line)
+        if "path" in row:
+            want[row["path"]] = (row["key"], row["matcher"],
+                                 row["confidence"])
+    bad = [i for i, p in by_id.items()
+           if (rows[i].get("key"), rows[i].get("matcher"),
+               rows[i].get("confidence")) != want[p]]
+    if bad:
+        i = bad[0]
+        raise AssertionError(f"serve {mode}: {len(bad)} rows differ from "
+                             f"batch-detect, e.g. {rows[i]} vs "
+                             f"{want[by_id[i]]} ({by_id[i]})")
+
+
+def summary(stats: dict, n: int, took: float) -> dict:
+    lat = stats["latency_ms"]
+    return {
+        "requests": n,
+        "seconds": took,
+        "requests_per_s": n / took,
+        **{f"{stage}_{q}_ms": lat[stage][f"{q}_ms"]
+           for stage in ("total", "queue_wait", "device")
+           for q in ("p50", "p99")},
+        "flush": stats["scheduler"]["flush"],
+        "buckets": stats["scheduler"]["buckets"],
+        "device_batches": stats["scheduler"]["device_batches"],
+        "fallbacks": stats["scheduler"]["fallbacks"],
+        "completion_errors": stats["scheduler"]["completion_errors"],
+    }
+
+
+class ServeRun:
+    """One card batcher's run, from its construction to its close: the
+    launch counts are reset before it is built and read after it is
+    closed, then held to what the scheduler counted (`check`)."""
+
+    def __init__(self, what: str, device: str, **kwargs):
+        from licensee_tpu_torch.kernels import dice_cuda
+        from licensee_tpu_torch.serve.scheduler import MicroBatcher
+
+        self.what, self.device = what, device
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+        dice_cuda.reset_launches()
+        self.batcher = MicroBatcher(device=device, warm_start=True, **kwargs)
+
+    def check(self, epochs: int = 1) -> tuple:
+        """Close the batcher; fail unless no request fell back or lost its
+        completion, each bucket was set up once, before any live flush,
+        and (on the card) `best_match_fused` launched exactly once per
+        flush, per warm-up probe (one a bucket for each of ``epochs``
+        classifiers) and per reload validation (``epochs`` - 1), and no
+        other kernel launched.  Returns (stats, launches)."""
+        from licensee_tpu_torch.kernels import dice_cuda
+
+        self.batcher.close()
+        stats = self.batcher.stats()
+        launches = dict(dice_cuda.LAUNCHES)
+        sched = stats["scheduler"]
+        problems = []
+        if sched["fallbacks"] or sched["completion_errors"]:
+            problems.append(f"fallbacks {sched['fallbacks']}, completion "
+                            f"errors {sched['completion_errors']}")
+        buckets = list(self.batcher.buckets)
+        per_shape = stats["device"]["per_shape"]
+        if (sorted(per_shape) != buckets or stats["device"]["compiles"]
+                != len(buckets) or any(per_shape[b]["compiles"] != 1
+                                       for b in buckets)):
+            problems.append(f"bucket set-up: {stats['device']}")
+        if self.device == "cuda":
+            want = (sched["device_batches"] + epochs * len(buckets)
+                    + epochs - 1)
+            others = {k: n for k, n in launches.items()
+                      if n and k != "best_match_fused"}
+            if launches["best_match_fused"] != want or others:
+                problems.append(
+                    f"launches {launches}: want best_match_fused {want} "
+                    f"({sched['device_batches']} flushes, {len(buckets)} "
+                    f"warm-up probes x {epochs}, {epochs - 1} validations)"
+                    " and nothing else")
+        if problems:
+            raise AssertionError(f"serve {self.what}: {problems}")
+        return stats, launches
+
+
+class ThreadProbe:
+    """Where some threads of this process stand over a run: a sampler
+    thread reads their stacks every ``interval`` seconds, and each
+    thread's clocks are read at the start and the end.  A sample is labelled with the innermost function of the port and the
+    innermost function of all (``_complete_group>result``: the
+    completion thread awaiting a flush's event).  The sampler takes the
+    interpreter lock to read the stacks, so a thread it finds in Python
+    code is waiting for that lock or was preempted there.  Each
+    thread's on-CPU seconds come from its CPU-time clock
+    (``time.pthread_getcpuclockid``), its run-queue seconds from the
+    kernel's ``/proc/self/task/<tid>/schedstat`` where it can be read."""
+
+    PORT = os.sep + "licensee_tpu_torch" + os.sep
+
+    def __init__(self, threads: dict, interval: float = 0.001):
+        import collections
+        import threading
+
+        self.threads, self.interval = threads, interval
+        self.samples = {name: collections.Counter() for name in threads}
+        self._stop = threading.Event()
+        self._sampler = threading.Thread(target=self._loop, daemon=True)
+
+    @staticmethod
+    def _clocks(thread) -> tuple:
+        """(on-CPU seconds, run-queue seconds), each None where the
+        host cannot read it."""
+        try:
+            on_cpu = time.clock_gettime(
+                time.pthread_getcpuclockid(thread.ident))
+        except OSError:
+            on_cpu = None
+        try:
+            with open(f"/proc/self/task/{thread.native_id}/schedstat",
+                      encoding="ascii") as fh:
+                queued = int(fh.read().split()[1]) / 1e9
+        except (OSError, ValueError, IndexError):
+            queued = None
+        return on_cpu, queued
+
+    def _where(self, frame) -> str:
+        leaf, port = frame.f_code.co_name, None
+        while frame is not None and port is None:
+            if self.PORT in frame.f_code.co_filename:
+                port = frame.f_code.co_name
+            frame = frame.f_back
+        return leaf if port in (None, leaf) else f"{port}>{leaf}"
+
+    def _loop(self) -> None:
+        idents = {t.ident: name for name, t in self.threads.items()}
+        while not self._stop.wait(self.interval):
+            frames = sys._current_frames()
+            for ident, name in idents.items():
+                if ident in frames:
+                    self.samples[name][self._where(frames[ident])] += 1
+
+    def __enter__(self) -> "ThreadProbe":
+        self._t0 = time.perf_counter()
+        self._start = {n: self._clocks(t) for n, t in self.threads.items()}
+        self._sampler.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._sampler.join(timeout=10.0)
+        self.wall = time.perf_counter() - self._t0
+        self._end = {n: self._clocks(t) for n, t in self.threads.items()}
+
+    def report(self) -> dict:
+        """{thread: {on_cpu_s, run_queue_s, wall_s, samples, top}}, the
+        top being the six commonest places with their share of the
+        samples; either seconds None where the host cannot read it."""
+        out = {}
+        for name, counts in self.samples.items():
+            a, b = self._start[name], self._end[name]
+            n = sum(counts.values())
+            out[name] = {
+                **{key: None if a[i] is None or b[i] is None
+                   else b[i] - a[i]
+                   for i, key in enumerate(("on_cpu_s", "run_queue_s"))},
+                "wall_s": self.wall,
+                "samples": n,
+                "top": [[where, round(k / n, 4)]
+                        for where, k in counts.most_common(6)],
+            }
+        return out
+
+
+def serve_children(target: str, device: str, stdio_reqs: list,
+                   stdio_want: dict, diff_text: str) -> None:
+    """The port's CLI in child processes, started together: `serve
+    --selftest`, `serve --selftest-reload`, a piped `serve --stats`
+    session (its rows equal the in-process ones, ``fallbacks`` 0 on
+    stderr) and `diff --socket` of ``diff_text`` on its stdin against
+    the in-process worker at ``target`` (its stdout the diff verb's
+    payload as `diff` renders it)."""
+    from licensee_tpu_torch.cli.main import _print_table
+    from licensee_tpu_torch.fleet.wire import oneshot
+    from licensee_tpu_torch.normalize.pipeline import format_percent
+
+    cli = [sys.executable, "-m", "licensee_tpu_torch.cli.main"]
+    dev = ["--device", "cpu"] if device == "cpu" else []
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs = {
+        "selftest": (cli + ["serve", "--selftest", *dev], None),
+        "selftest-reload": (cli + ["serve", "--selftest-reload", *dev], None),
+        "stdio": (cli + ["serve", "--stats", *dev],
+                  b"".join(request_line(r) for r in stdio_reqs)),
+        "diff": (cli + ["diff", "--socket", target], diff_text.encode()),
+    }
+    started = {
+        name: (subprocess.Popen(argv, cwd=here, stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE), stdin)
+        for name, (argv, stdin) in procs.items()
+    }
+    done = {}
+    for name, (proc, stdin) in started.items():
+        try:
+            out, err = proc.communicate(stdin or b"", timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"serve child {name} timed out") from None
+        done[name] = (proc.returncode, out.decode(), err.decode())
+    for name in ("selftest", "selftest-reload"):
+        rc, out, err = done[name]
+        last = json.loads(out.strip().splitlines()[-1]) if out.strip() else {}
+        if rc != 0 or last.get("problems") != []:
+            raise AssertionError(f"serve --{name}: exit {rc}, {out[-1000:]}"
+                                 f" {err[-1000:]}")
+    rc, out, err = done["stdio"]
+    stats = json.loads(err.strip().splitlines()[-1])
+    rows = {r["id"]: r for r in map(json.loads, out.splitlines())}
+    if (rc != 0 or stats["scheduler"]["fallbacks"] != 0
+            or set(rows) != set(stdio_want)
+            or any(verdict_of(rows[i]) != verdict_of(stdio_want[i])
+                   for i in rows)):
+        raise AssertionError(f"serve --stats over a pipe: exit {rc}, "
+                             f"{len(rows)} rows, {err[-1000:]}")
+    payload = oneshot(target, {"op": "diff", "content": diff_text,
+                               "filename": "LICENSE"}, 60.0)["diff"]
+    rendered = io.StringIO()
+    with contextlib.redirect_stdout(rendered):
+        print(f"Comparing to {payload['spdx_id'] or payload['key']}:")
+        _print_table([
+            ["Input Length:", payload["input_length"]],
+            ["License length:", payload["license_length"]],
+            ["Similarity:", format_percent(payload["similarity"])],
+        ])
+        print("Exact match!" if payload["identical"] else payload["diff"])
+    rc, out, err = done["diff"]
+    if rc != 0 or out != rendered.getvalue():
+        raise AssertionError(f"diff --socket: exit {rc}, {out[-500:]!r} "
+                             f"!= {rendered.getvalue()[-500:]!r} {err}")
+    log(f"serve children: --selftest, --selftest-reload, a piped --stats "
+        f"session ({len(rows)} rows equal to the in-process ones, 0 "
+        f"fallbacks) and diff --socket (the verb's payload) all agree")
+
+
+def reload_under_load(device: str, root: str, bases: list,
+                      corpus_608, artifact: str, scale: ServeScale) -> tuple:
+    """Reload from the vendored corpus to the T=608 artifact in the
+    middle of a 64-client run: no request errors, every row carries the
+    old or the new fingerprint and equals the device='cpu' verdict under
+    that corpus, the fingerprint flips, the first repeat after the swap
+    is not served from the cache, and a corrupt artifact is refused
+    while the worker keeps serving.  Returns (stats, launches,
+    seconds)."""
+    from licensee_tpu_torch.corpus.artifact import (
+        corpus_fingerprint,
+        short_fingerprint,
+    )
+    from licensee_tpu_torch.corpus.compiler import default_corpus
+    from licensee_tpu_torch.fleet.wire import oneshot
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+
+    reqs = variant_requests(bases, scale.reload_requests, "reload")
+    fps = {short_fingerprint(corpus_fingerprint(c)): c
+           for c in (default_corpus(), corpus_608)}
+    want = {}
+    for fp, corpus in fps.items():
+        clf = BatchClassifier(corpus=corpus, device="cpu")
+        results = clf.classify_blobs([r["content"] for r in reqs],
+                                     filenames=["LICENSE"] * len(reqs))
+        want[fp] = [(r.key, r.matcher, r.confidence) for r in results]
+    corrupt = os.path.join(root, "corrupt.corpus.npz")
+    with open(corrupt, "wb") as fh:
+        fh.write(b"not a corpus artifact at all")
+    seed = {"content": f"{bases[0][1]}\nzqfence\n", "filename": "LICENSE"}
+    run = ServeRun("reload", device, corpus_source="vendored")
+    fence = {}
+
+    def control(rows: dict) -> None:
+        deadline = time.monotonic() + 120
+        while len(rows) < len(reqs) // 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        fence["before"] = [oneshot(target, {"id": -1, **seed}, 60.0)
+                           for _ in range(2)]
+        fence["reload"] = oneshot(target, {"id": -2, "op": "reload",
+                                           "corpus": artifact}, 300.0)
+        fence["after"] = oneshot(target, {"id": -3, **seed}, 60.0)
+        fence["corrupt"] = oneshot(target, {"id": -4, "op": "reload",
+                                            "corpus": corrupt}, 300.0)
+        fence["still"] = oneshot(target, {"id": -5, **seed}, 60.0)
+
+    with socket_worker(run.batcher, root) as target:
+        old = run.batcher.corpus_fingerprint
+        rows, took = socket_run(target, reqs, scale.clients, scale.window,
+                                control=control)
+    new = fence["reload"].get("reload", {}).get("fingerprint")
+    problems = []
+    if not new or new == old or run.batcher.corpus_fingerprint != new:
+        problems.append(f"the fingerprint did not flip: {fence['reload']}")
+    if not fence["before"][1]["cached"] or fence["after"]["cached"]:
+        problems.append(f"cache fence: {fence['before']} {fence['after']}")
+    if (fence["after"]["corpus"] != short_fingerprint(new)
+            or fence["before"][0]["corpus"] != short_fingerprint(old)):
+        problems.append(f"fence rows' corpora: {fence}")
+    if (not fence["corrupt"].get("error", "").startswith("reload_failed")
+            or fence["still"].get("corpus") != short_fingerprint(new)
+            or fence["still"].get("error")):
+        problems.append(f"corrupt artifact: {fence['corrupt']} "
+                        f"{fence['still']}")
+    seen = {r.get("corpus") for r in rows.values()}
+    bad = [i for i, r in rows.items()
+           if r.get("error") or r.get("corpus") not in fps
+           or (r["key"], r["matcher"], r["confidence"])
+           != want[r["corpus"]][i]]
+    if bad:
+        problems.append(f"{len(bad)} rows wrong or attributed to no known "
+                        f"corpus, e.g. {rows[bad[0]]}")
+    if seen != set(fps):
+        problems.append(f"rows carry the corpora {seen}, want both")
+    if problems:
+        raise AssertionError(f"serve reload under load: {problems}")
+    stats, launches = run.check(epochs=2)
+    log(f"serve reload under load: {len(rows)} requests from "
+        f"{scale.clients} clients in {took:.3f} s, the fingerprint "
+        f"{short_fingerprint(old)} -> {short_fingerprint(new)} "
+        f"({fence['reload']['reload']['elapsed_s']} s to build, validate "
+        f"and warm the T={corpus_608.n_templates} candidate), "
+        f"{sum(r['corpus'] == short_fingerprint(new) for r in rows.values())}"
+        f" rows under the new corpus, every row equal to the device='cpu' "
+        f"verdict of its corpus; the cache fenced, the corrupt artifact "
+        f"refused; launches {json.dumps(launches)}")
+    return stats, launches, took
+
+
+def phase_serve(np, torch, seed: int, device: str = "cuda",
+                scale: ServeScale | None = None,
+                root: str | None = None) -> dict:
+    """Phase 9: `serve` on ``device``.  Returns {"runs": [summaries],
+    "launches": {(run, kernel): n}}."""
+    if root is None:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+            return phase_serve(np, torch, seed, device, scale, tmp)
+    from licensee_tpu_torch.corpus.spdx import load_spdx_dir, spdx_corpus
+    from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
+
+    scale = scale or ServeScale()
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    report = {"runs": [], "launches": {}}
+
+    def add(run: str, launches: dict) -> None:
+        for k, n in launches.items():
+            key = (run, k)
+            report["launches"][key] = report["launches"].get(key, 0) + n
+
+    # -- inputs --
+    mixed = write_mixed_manifest(np, os.path.join(root, "mixed"), seed,
+                                 n_repos=scale.mixed_repos)
+    vendored = write_manifest(np, os.path.join(root, "vendored"), seed,
+                              n_files=scale.vendored_files)
+    spdx_dir = synth_spdx_dir(os.path.join(root, "spdx-src"), SPDX_T, seed)
+    corpus_608 = spdx_corpus(spdx_dir)
+    artifact = os.path.join(root, "spdx608.corpus.npz")
+    rc, _out, err, _s = run_verb(["corpus-build", "--corpus", spdx_dir,
+                                  "--output", artifact])
+    if rc != 0:
+        raise RuntimeError(f"corpus-build: {err[-2000:]}")
+    bases = vendored_bases()
+    bases_608 = [(t.key, t.content) for t in load_spdx_dir(spdx_dir)]
+    sessions = {}
+    for mode, manifest in (("license", vendored), ("auto", mixed)):
+        with open(manifest, encoding="utf-8") as fh:
+            sessions[mode] = file_requests(fh.read().splitlines())
+    variants = variant_requests(bases, scale.variants, "a")
+    variants_608 = variant_requests(bases_608, scale.variants_608, "b")
+    single = variant_requests(bases, scale.single, "c")
+    single_608 = variant_requests(bases_608, scale.single, "d")
+    log(f"serve inputs: sessions of {len(sessions['license'][0])} license "
+        f"and {len(sessions['auto'][0])} auto requests, {len(variants)} "
+        f"T=47 and {len(variants_608)} T={SPDX_T} variants "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- in process: the two sessions, with the children beside the
+    # license worker's socket --
+    for mode in ("license", "auto"):
+        reqs, by_id = sessions[mode]
+        run = ServeRun(f"{mode} session", device, mode=mode)
+        rows, took = serve_session_rows(run.batcher, reqs)
+        if mode == "license":
+            # diff a file the session matched by Dice below 100%: the
+            # word diff's branch
+            near = next(by_id[i] for i, r in rows.items()
+                        if r.get("matcher") == "dice"
+                        and r["confidence"] < 100)
+            with open(near, encoding="utf-8", errors="replace") as fh:
+                near_text = fh.read()
+            with socket_worker(run.batcher, root) as target:
+                serve_children(target, device, reqs[:200],
+                               {r["id"]: rows[r["id"]] for r in reqs[:200]},
+                               near_text)
+        stats, launches = run.check()
+        add("serve", launches)
+        held_to_reference(f"{mode} session", rows,
+                          cpu_rows(reqs, mode=mode))
+        held_to_batch_detect(mode, rows, by_id, root, device)
+        report["runs"].append({"run": f"{mode} session T=47",
+                               **summary(stats, len(reqs), took)})
+        log(f"serve {mode} session: {len(reqs)} requests through "
+            f"serve_session in {took:.3f} s, rows equal to the "
+            f"device='cpu' batcher's and to batch-detect's; launches "
+            f"{json.dumps(launches)}")
+
+    # -- over the socket: 64 clients, then one client one request at a
+    # time, at T=47 and at T=608, each to the card's batcher and to a
+    # device='cpu' one --
+    refs = {}
+    for label, reqs, clients, window, corpus, run_key in (
+            ("T=47 64 clients", variants, scale.clients, scale.window, None,
+             "serve"),
+            ("T=47 one client", single, 1, 1, None, "serve"),
+            (f"T={SPDX_T} 64 clients", variants_608, scale.clients,
+             scale.window, corpus_608, "serve608"),
+            (f"T={SPDX_T} one client", single_608, 1, 1, corpus_608,
+             "serve608")):
+        done = {}
+        for dev in dict.fromkeys((device, "cpu")):
+            run = ServeRun(label, dev, corpus=corpus)
+            with socket_worker(run.batcher, root) as target:
+                rows, took = client_process(target, reqs, clients, window,
+                                            root)
+            stats, launches = run.check()
+            sched = stats["scheduler"]
+            if clients == 1 and (sched["flush"]["deadline"] != sched[
+                    "device_batches"] or set(sched["buckets"]) != {"8"}):
+                raise AssertionError(f"serve {label} ({dev}): not every "
+                                     f"flush a B=1 deadline flush: {sched}")
+            done[dev] = (rows, took, stats, launches)
+        # the reference: the host batcher's rows over the same socket,
+        # or on the CPU an in-process session's
+        refs[label] = (done["cpu"][0] if on_card
+                       else cpu_rows(reqs, corpus=corpus))
+        held_to_reference(label, done[device][0], refs[label])
+        rows, took, stats, launches = done[device]
+        add(run_key, launches)
+        sched = stats["scheduler"]
+        if clients > 1 and on_card and str(run.batcher.max_batch) not in \
+                sched["buckets"]:
+            raise AssertionError(f"serve {label}: no flush reached "
+                                 f"{run.batcher.max_batch}: {sched}")
+        report["runs"].append({"run": label, **summary(stats, len(reqs),
+                                                       took)})
+        if device != "cpu":
+            report["runs"].append({"run": f"{label}, host batcher",
+                                   **summary(done["cpu"][2], len(reqs),
+                                             done["cpu"][1])})
+        log(f"serve {label}: {len(reqs)} requests in {took:.3f} s "
+            f"(a device='cpu' batcher over the socket: "
+            f"{done['cpu'][1]:.3f} s), rows equal to the device='cpu' "
+            f"batcher's; flush "
+            f"{json.dumps(sched['flush'])}, buckets "
+            f"{json.dumps(sched['buckets'])}; launches "
+            f"{json.dumps(launches)}")
+
+    # -- where the device stage's host time goes: the scheduler and
+    # completion threads probed, at the default switch interval and at
+    # a tenth of it --
+    probed = variants[:scale.profiled]
+    probed_want = {r["id"]: refs["T=47 64 clients"][r["id"]] for r in probed}
+    default_interval = sys.getswitchinterval()
+    for interval in (default_interval, default_interval / 10):
+        label = f"T=47 64 clients, switch interval {interval * 1e3:g} ms"
+        run = ServeRun(label, device)
+        probe = ThreadProbe({"scheduler": run.batcher._thread,
+                             "completion": run.batcher._completion})
+        sys.setswitchinterval(interval)
+        try:
+            with socket_worker(run.batcher, root) as target, probe:
+                rows, took = client_process(target, probed, scale.clients,
+                                            scale.window, root)
+        finally:
+            sys.setswitchinterval(default_interval)
+        stats, launches = run.check()
+        add("serve", launches)
+        held_to_reference(label, rows, probed_want)
+        report["runs"].append({"run": label,
+                               **summary(stats, len(probed), took),
+                               "threads": probe.report()})
+
+    stats, launches, took = reload_under_load(device, root, bases,
+                                              corpus_608, artifact, scale)
+    add("serve", launches)
+    report["runs"].append({"run": "reload under load",
+                           **summary(stats, scale.reload_requests, took)})
+
+    # -- the card's busy share over one 64-client run --
+    busy = None
+    if on_card:
+        from torch.profiler import ProfilerActivity, profile
+
+        reqs = variant_requests(bases, scale.profiled, "p")
+        run = ServeRun("profiled", device)
+        with socket_worker(run.batcher, root) as target:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                rows, took = client_process(target, reqs, scale.clients,
+                                            scale.window, root)
+                torch.cuda.synchronize()
+        _stats, launches = run.check()
+        add("serve", launches)
+        busy = (device_busy_seconds(prof), took)
+
+    runs = "; ".join(
+        f"{r['run']}: {r['requests']} requests, {r['requests_per_s']:.1f} "
+        f"req/s, total p50 {r['total_p50_ms']} p99 {r['total_p99_ms']} ms, "
+        f"queue_wait p50 {r['queue_wait_p50_ms']} p99 "
+        f"{r['queue_wait_p99_ms']} ms, device p50 {r['device_p50_ms']} p99 "
+        f"{r['device_p99_ms']} ms, flush {json.dumps(r['flush'])}, buckets "
+        f"{json.dumps(r['buckets'])}"
+        + (f", threads {json.dumps(r['threads'])}" if "threads" in r else "")
+        for r in report["runs"] if r["run"] != "reload under load")
+    share = (f"card busy {busy[0]:.6f} s of the profiled 64-client run's "
+             f"{busy[1]:.3f} s: busy share {busy[0] / busy[1]:.6f}"
+             if busy and busy[0] > 0 else "card busy share: not measured")
+    card = smi("name,power.limit") if on_card else "cpu"
+    log(f"serve timing: {card}; {runs}; {share}")
+    log(f"serve: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    return report
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--serve-clients", nargs=5, default=None,
+                        metavar=("TARGET", "IN", "OUT", "CLIENTS", "WINDOW"),
+                        help=argparse.SUPPRESS)  # phase 9's client process
     args = parser.parse_args()
+    if args.serve_clients:
+        return serve_clients_main(*args.serve_clients)
 
     import numpy as np
     import torch
@@ -2002,6 +2847,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(np, torch, args.seed, sm_clocks_per_s)
     launches = phase_slice(np, torch, args.seed)
+    launches.update(phase_serve(np, torch, args.seed)["launches"])
     for row in rows:
         row["launches"] = launches.get(
             (row.pop("slice_run"), row["name"].split("@")[0]), 0)

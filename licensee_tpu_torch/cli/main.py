@@ -15,6 +15,13 @@
         [--no-resume] [--stats]
     python -m licensee_tpu_torch.cli.main corpus-build \\
         [--corpus SRC] --output ART.npz | --inspect ART.npz
+    python -m licensee_tpu_torch.cli.main serve [--socket PATH|HOST:PORT] \\
+        [--mode M] [--corpus SRC] [--method M] [--max-batch N] \\
+        [--max-delay-ms MS] [--queue-depth N] [--pipeline-depth N] \\
+        [--cache-entries N] [--cache-bytes N] [--deadline-ms MS] \\
+        [--buckets N,N,...] [--confidence N] [--stats] [--no-tracing] \\
+        [--trace-sample RATE] [--trace-slow-ms MS] [--trace-log PATH] \\
+        [--device cuda|cpu] [--selftest | --selftest-reload]
 
 `detect` (the default command: a bare path runs it), `diff`,
 `license-path`, `version` and `help` are the reference's verbs
@@ -22,8 +29,8 @@
 the package in `detect`'s ``Matcher:`` line and the program name in
 `help`.  They run the per-file matcher chain Copyright -> Exact -> Dice
 on the host over a directory, a file, a git repository or a GitHub
-URL; `diff --socket`, which speaks to a `serve` worker, waits for the
-`serve` verb.
+URL; `diff --socket` sends the diff to a `serve` worker instead
+(`fleet/wire.py`), which renders it with difflib, not git.
 
 `batch-detect` classifies a manifest of loose files and local tar, zip
 and git containers (one entry per line: ``path``, ``archive.tar::member``,
@@ -37,10 +44,14 @@ prints the rows (and the container verdicts after them) on stdout from
 one unpipelined pass.  It runs on the CUDA device unless ``--device
 cpu`` asks for the plain PyTorch scorers on the CPU.  `corpus-build`
 writes a corpus artifact in the JAX package's format
-(`corpus/artifact.py`).  ``--stripes``, ``--mesh``, ``--device-lanes``,
-``--progress``, remote (http(s)) containers, which a manifest may not
-name, and the other verbs of `licensee_tpu/cli/main.py` wait for later
-slices (ROADMAP A).
+(`corpus/artifact.py`).  `serve` is the online worker: the JAX
+package's micro-batcher (`serve/scheduler.py`) and JSONL protocol
+(`serve/server.py`) over stdio or a Unix or TCP socket, scoring each
+flush with K1 on the card unless ``--device cpu`` is given.
+``--stripes``, ``--mesh``, ``--device-lanes``, ``--progress``, remote
+(http(s)) containers, which a manifest may not name, and the other
+verbs of `licensee_tpu/cli/main.py` (`stats`, `traces`, `slo`, `top`,
+`alerts`, `fleet`, ...) wait for later slices (ROADMAP A).
 """
 
 from __future__ import annotations
@@ -220,14 +231,7 @@ def _diff(license_key: str, license_to_diff) -> int:
 def cmd_diff(args) -> int:
     from licensee_tpu_torch.project_files.license_file import LicenseFile
 
-    if args.socket:
-        print(
-            "error: diff --socket sends the diff to a `serve` worker, and "
-            "the port has no `serve` verb yet",
-            file=sys.stderr,
-        )
-        return 1
-    if not args.license:
+    if not args.license and not args.socket:
         print(
             "Usage: provide a license to diff against with --license (spdx name)",
             file=sys.stderr,
@@ -251,7 +255,49 @@ def cmd_diff(args) -> int:
         if file is None:
             print("No license file found", file=sys.stderr)
             return 1
+    if args.socket:
+        return _diff_via_worker(args, file)
     return _diff(args.license, file)
+
+
+def _diff_via_worker(args, file) -> int:
+    """The wire form of the diff command: one ``{"op": "diff"}`` round
+    trip to a serving worker (`fleet/wire.py:oneshot`), which normalizes
+    the blob through the featurizer's own pipeline and word-diffs it
+    against the closest (or ``--license``-named) template: no local
+    corpus build and no git."""
+    from licensee_tpu_torch.fleet.wire import oneshot
+
+    request = {"op": "diff", "content": file.content or ""}
+    if file.filename:
+        request["filename"] = file.filename
+    if args.license:
+        request["license"] = args.license
+    try:
+        row = oneshot(args.socket, request, args.timeout)
+    except OSError as exc:
+        print(f"error: cannot reach worker: {exc}", file=sys.stderr)
+        return 1
+    if row.get("error"):
+        print(f"error: {row['error']}", file=sys.stderr)
+        return 1
+    diff = row.get("diff") or {}
+    if diff.get("key") is None:
+        print("No comparable license template", file=sys.stderr)
+        return 1
+    print(f"Comparing to {diff.get('spdx_id') or diff.get('key')}:")
+    _print_table(
+        [
+            ["Input Length:", diff.get("input_length")],
+            ["License length:", diff.get("license_length")],
+            ["Similarity:", format_percent(diff.get("similarity") or 0.0)],
+        ]
+    )
+    if diff.get("identical"):
+        print("Exact match!")
+        return 0
+    print(diff.get("diff") or "")
+    return 0
 
 
 def cmd_license_path(args) -> int:
@@ -462,6 +508,108 @@ def cmd_corpus_build(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    """The online serving worker: a persistent micro-batching front end
+    over the device scorer (`serve/scheduler.py`).  Speaks
+    newline-delimited JSON on stdin/stdout, or on a Unix domain (or
+    TCP) socket with --socket, one session per connection, one shared
+    cache and batcher.  Runs on the card unless --device cpu."""
+    from licensee_tpu_torch.serve.server import (
+        selftest,
+        selftest_reload,
+        serve_stdio,
+        serve_unix,
+    )
+
+    if args.selftest:
+        return selftest(device=args.device)
+    if args.selftest_reload:
+        return selftest_reload(device=args.device)
+    try:
+        corpus = load_corpus(args.corpus)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    buckets = None
+    if args.buckets:
+        try:
+            buckets = tuple(int(b) for b in args.buckets.split(","))
+        except ValueError:
+            print(f"error: bad --buckets {args.buckets!r} (want N,N,...)",
+                  file=sys.stderr)
+            return 1
+
+    from licensee_tpu_torch.serve.scheduler import MicroBatcher
+
+    # a socket worker gets a name (its socket's basename) and a flight
+    # recorder at the path convention of `obs/flight.py`; a stdio
+    # session keeps the in-process defaults
+    flight = None
+    proc_name = "serve"
+    if args.socket:
+        from licensee_tpu_torch.obs.flight import (
+            FlightRecorder,
+            flight_path_for_socket,
+        )
+
+        proc_name = os.path.basename(args.socket)
+        if proc_name.endswith(".sock"):
+            proc_name = proc_name[: -len(".sock")]
+        flight = FlightRecorder(
+            flight_path_for_socket(args.socket), proc=proc_name
+        )
+    try:
+        batcher = MicroBatcher(
+            corpus=corpus,
+            method=args.method,
+            mode=args.mode,
+            max_batch=args.max_batch,
+            max_delay_ms=args.max_delay_ms,
+            queue_depth=args.queue_depth,
+            cache_entries=args.cache_entries,
+            cache_bytes=args.cache_bytes,
+            deadline_ms=args.deadline_ms,
+            threshold=args.confidence,
+            buckets=buckets,
+            pipeline_depth=args.pipeline_depth,
+            # the worker always sets up its bucket shapes before the
+            # first request
+            warm_start=True,
+            tracing=not args.no_tracing,
+            trace_sample=args.trace_sample,
+            trace_slow_ms=args.trace_slow_ms,
+            trace_log=args.trace_log,
+            trace_proc=proc_name,
+            flight=flight,
+            corpus_source=args.corpus,
+            device=args.device,
+        )
+    except (ValueError, RuntimeError) as exc:
+        # a bad option, or no CUDA device without --device cpu
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    if flight is not None:
+        flight.register_metrics(batcher.obs.registry)
+        flight.start()
+        flight.record("boot", socket=args.socket)
+    try:
+        if args.socket:
+            print(f"serving on {args.socket}", file=sys.stderr)
+            serve_unix(batcher, args.socket)
+        else:
+            serve_stdio(batcher)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        batcher.close()
+        if flight is not None:
+            flight.record("shutdown")
+            flight.stop()
+        if args.stats:
+            print(json.dumps(batcher.stats()), file=sys.stderr)
+    return 0
+
+
 def bounded(kind, lo):
     """An argparse type: ``kind`` no smaller than ``lo`` (NaN refused),
     so a typo fails before a large manifest loads."""
@@ -490,6 +638,7 @@ COMMANDS = (
     ("help", "Describe available commands"),
     ("batch-detect", "Classify a manifest of files on the GPU batch path"),
     ("corpus-build", "Compile a corpus into a fingerprinted artifact"),
+    ("serve", "Run the online micro-batching classification worker"),
 )
 _COMMAND_HELP = dict(COMMANDS)
 
@@ -697,6 +846,165 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     corpus_build.set_defaults(func=cmd_corpus_build)
+
+    serve = sub.add_parser("serve", help=_COMMAND_HELP["serve"])
+    serve.add_argument(
+        "--socket", default=None, metavar="PATH|HOST:PORT",
+        help=(
+            "Serve on a Unix domain socket — or, as host:port, on TCP "
+            "(the cross-host federation tier's worker transport; "
+            "TCP_NODELAY on every connection) — one JSONL session per "
+            "connection, shared cache; default is one session on "
+            "stdin/stdout"
+        ),
+    )
+    serve.add_argument(
+        "--mode", default="license",
+        choices=["license", "readme", "package", "auto"],
+        help=(
+            "Which matcher chain requests run (same semantics as "
+            "batch-detect; 'auto' routes each request by its filename)"
+        ),
+    )
+    serve.add_argument(
+        "--corpus", default="vendored",
+        help=(
+            "Template pool: 'vendored' (default), 'spdx', a path to "
+            "an SPDX license-list-XML src/ directory, or a corpus "
+            "artifact written by corpus-build"
+        ),
+    )
+    serve.add_argument(
+        "--method", default="auto",
+        choices=list(METHODS),
+        help="Device scoring path (same as batch-detect)",
+    )
+    serve.add_argument(
+        "--max-batch", type=bounded(int, 1), default=256, metavar="N",
+        help=(
+            "Flush a micro-batch as soon as N Dice-bound requests are "
+            "waiting (default 256)"
+        ),
+    )
+    serve.add_argument(
+        "--max-delay-ms", type=bounded(float, 0), default=5.0, metavar="MS",
+        help=(
+            "Flush a PARTIAL micro-batch once its oldest request has "
+            "waited MS milliseconds — the latency bound (default 5)"
+        ),
+    )
+    serve.add_argument(
+        "--queue-depth", type=bounded(int, 1), default=1024, metavar="N",
+        help=(
+            "Bounded admission queue: a request arriving with N "
+            "Dice-bound rows already waiting is rejected with "
+            "retry_after instead of buffered (default 1024)"
+        ),
+    )
+    serve.add_argument(
+        "--pipeline-depth", type=bounded(int, 1), default=2, metavar="N",
+        help=(
+            "How many submitted device flushes may be in flight before "
+            "the scheduler thread blocks on the handoff queue: 1 = "
+            "synchronous flush, >= 2 = the overlap pipeline (the "
+            "scheduler gathers flush N+1 while the device scores N "
+            "and the completion thread answers N-1; default 2)"
+        ),
+    )
+    serve.add_argument(
+        "--cache-entries", type=bounded(int, 0), default=65536, metavar="N",
+        help=(
+            "Content-hash LRU result cache capacity; 0 disables "
+            "(default 65536)"
+        ),
+    )
+    serve.add_argument(
+        "--cache-bytes", type=bounded(int, 0), default=None, metavar="N",
+        help=(
+            "Bound the result cache by estimated resident BYTES "
+            "(LRU eviction, on top of --cache-entries) — the memory "
+            "ceiling for week-long fleet workers (default: unbounded)"
+        ),
+    )
+    serve.add_argument(
+        "--deadline-ms", type=bounded(float, 0), default=0.0, metavar="MS",
+        help=(
+            "Default per-request deadline: a request still queued after "
+            "MS milliseconds answers deadline_exceeded instead of "
+            "occupying a device slot; 0 = none (per-request "
+            "deadline_ms overrides)"
+        ),
+    )
+    serve.add_argument(
+        "--buckets", default=None, metavar="N,N,...",
+        help=(
+            "Device batch shapes (ascending); each is set up once "
+            "(its pinned staging) and a partial flush takes the "
+            "smallest fitting bucket (default: a x4 ladder up to "
+            "--max-batch)"
+        ),
+    )
+    serve.add_argument(
+        "--confidence", type=float, default=None, metavar="N",
+        help=(
+            "Minimum Dice confidence for a match (default: the global "
+            f"threshold, {licensee_tpu_torch.CONFIDENCE_THRESHOLD})"
+        ),
+    )
+    serve.add_argument(
+        "--stats", action="store_true",
+        help="Dump the final stats JSON to stderr at shutdown",
+    )
+    serve.add_argument(
+        "--no-tracing", action="store_true",
+        help="Disable request tracing entirely (metrics stay on)",
+    )
+    serve.add_argument(
+        "--trace-sample", type=bounded(float, 0), default=0.01, metavar="RATE",
+        help=(
+            "Head-sampling rate in [0,1]: retain every ~1/RATE-th "
+            "request's trace (default 0.01; slow requests are always "
+            "retained regardless)"
+        ),
+    )
+    serve.add_argument(
+        "--trace-slow-ms", type=bounded(float, 0), default=250.0, metavar="MS",
+        help=(
+            "Slow-request exemplar threshold: a request slower than MS "
+            "is retained (and logged with --trace-log) even when head "
+            "sampling skipped it (default 250)"
+        ),
+    )
+    serve.add_argument(
+        "--trace-log", default=None, metavar="PATH",
+        help=(
+            "Append slow-request exemplar traces to this JSONL file "
+            "(bounded: one rotation to PATH.1 at ~4 MiB)"
+        ),
+    )
+    serve.add_argument(
+        "--selftest", action="store_true",
+        help=(
+            "Run an in-process end-to-end session (exact prefilter, "
+            "Dice micro-batch, cache hit, stats verb, Prometheus "
+            "exposition, five-span exemplar trace) and exit 0/1 — "
+            "the CI smoke"
+        ),
+    )
+    serve.add_argument(
+        "--selftest-reload", action="store_true",
+        help=(
+            "Run the corpus hot-swap smoke (build an artifact, serve "
+            "live traffic, blue/green reload under it, verify the "
+            "fingerprint flipped, the cache fenced, and corrupt/"
+            "unloadable sources refused) and exit 0/1 — the CI smoke"
+        ),
+    )
+    serve.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help="Where the scorers run (default cuda; errors if no GPU)",
+    )
+    serve.set_defaults(func=cmd_serve)
 
     if set(sub.choices) != {name for name, _ in COMMANDS}:
         raise AssertionError(

@@ -281,6 +281,19 @@ class BlobResult:
     # (license_file.rb:71-77)
     attribution: str | None = None
 
+    def as_dict(self) -> dict:
+        """The verdict fields of a serve response row."""
+        d = {
+            "key": self.key,
+            "matcher": self.matcher,
+            "confidence": self.confidence,
+        }
+        if self.closest is not None:
+            d["closest"] = [[k, c] for k, c in self.closest]
+        if self.attribution is not None:
+            d["attribution"] = self.attribution
+        return d
+
 
 @dataclass
 class PreparedBatch:
@@ -736,19 +749,31 @@ class BatchClassifier:
         the native library is absent or failed this blob over.  ``html``
         is the per-row gate prepare_batch resolved; the sentinel name
         only re-arms NormalizedContent's own stage-ordered _strip_html."""
-        blob = NormalizedBlob(raw, filename="x.html" if html else None)
-        content = blob.content or ""
-        if prefilter and COPYRIGHT_FULL_REGEX.search(ruby_strip(content)):
-            results[i] = BlobResult("no-license", "copyright", 100.0)
-            return
-        if (prefilter and blob.wordset is not None
-                and blob.wordset in self._exact_map):
-            results[i] = BlobResult(
-                self._exact_map[blob.wordset], "exact", 100.0
+        t0 = time.perf_counter()
+        try:
+            blob = NormalizedBlob(raw, filename="x.html" if html else None)
+            content = blob.content or ""
+            if prefilter and COPYRIGHT_FULL_REGEX.search(ruby_strip(content)):
+                results[i] = BlobResult("no-license", "copyright", 100.0)
+                return
+            if (prefilter and blob.wordset is not None
+                    and blob.wordset in self._exact_map):
+                results[i] = BlobResult(
+                    self._exact_map[blob.wordset], "exact", 100.0
+                )
+                return
+            bits[i], n_words[i], lengths[i] = self.corpus.file_features(blob)
+            cc_fp[i] = bool(
+                CC_FALSE_POSITIVE_REGEX.search(ruby_strip(content))
             )
-            return
-        bits[i], n_words[i], lengths[i] = self.corpus.file_features(blob)
-        cc_fp[i] = bool(CC_FALSE_POSITIVE_REGEX.search(ruby_strip(content)))
+        finally:
+            # the native profile surface's rows, for the blobs this path
+            # featurizes (`native_pipeline.profile_dump` merges them)
+            native_pipeline.py_profile_add(**{
+                "count.blobs": 1,
+                "count.bytes_in": len(raw) if raw is not None else 0,
+                "stage.normalize_s": time.perf_counter() - t0,
+            })
 
     def _prepare_one_native(
         self, raw, results, bits, n_words, lengths, cc_fp, i, prefilter=True,
@@ -831,9 +856,11 @@ class BatchClassifier:
         self.finish_chunks(prepared, outs, threshold)
         return prepared.results  # type: ignore[return-value]
 
-    def dispatch_chunks_async(self, prepared: PreparedBatch) -> DeviceFuture:
+    def dispatch_chunks_async(
+        self, prepared: PreparedBatch, pad_to: int | None = None
+    ) -> DeviceFuture:
         """Submit device scoring for the ``todo`` rows in chunks of
-        ``pad_batch_to``, without blocking.
+        ``pad_batch_to`` (or ``pad_to``), without blocking.
 
         Each chunk is copied into a staging slot (pinned host rows on a
         card, recycled through `_StagingRing`) and enqueued on the
@@ -844,14 +871,23 @@ class BatchClassifier:
         consumes; until then the card computes while the host featurizes
         the next chunks.  A shape's first dispatch blocks: it loads the
         kernel library (building it if stale) and allocates pinned
-        memory.  On the CPU the plain scorers run at submit."""
+        memory.  On the CPU the plain scorers run at submit.
+
+        ``pad_to`` sets the chunk capacity of this dispatch: the serve
+        micro-batcher (`serve/scheduler.py`) gives each flush the smallest
+        fitting bucket, so the staging slot and the dispatch stats'
+        shapes are the bucket's.  The kernels still launch at the chunk's
+        real row count (`dice_cuda.BestMatchScorer.submit`), never at the
+        padded capacity."""
         if prepared.todo and self._scorer is None:
             raise RuntimeError(
                 "a host-only classifier (device=None) cannot dispatch: "
                 "featurize workers only prepare batches"
             )
+        if pad_to is not None and pad_to < 1:
+            raise ValueError(f"pad_to must be >= 1, got {pad_to!r}")
         todo = prepared.todo
-        B = self.pad_batch_to
+        B = int(pad_to) if pad_to is not None else self.pad_batch_to
         parts = []
         for start in range(0, len(todo), B):
             chunk = todo[start : start + B]

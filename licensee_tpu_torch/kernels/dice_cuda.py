@@ -34,6 +34,7 @@ kernel cannot take raises.
 from __future__ import annotations
 
 import functools
+import threading
 
 import numpy as np
 import torch
@@ -45,6 +46,15 @@ from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
 # exactly where it launches its kernel
 LAUNCHES = {"score_pairs_fused": 0, "best_match_fused": 0,
             "topk_fused": 0, "overlap_pairs_mma": 0, "topk_exact": 0}
+# the serve path launches from its scheduler thread and, during a corpus
+# reload, from the reload thread too: the counts and K1's tickets
+# (`_tickets`) are shared between them
+_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 # meta-table columns of K1 (int32[T, 8], one row per template), as
 # `dice_pallas.pack_corpus` lays them out
@@ -89,8 +99,9 @@ TOPK_SORT_MAX = 8 * 1024
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -225,16 +236,21 @@ def fused_schedule(B: int, T: int, W: int, n_sms: int, min_split: int = 8):
 # launches of `best_match_fused` (each launch leaves them zero), so the
 # kernel's cross-block merge needs no memset.  Launches that share them
 # are ordered on their one stream; launches on two streams (the batch
-# path's dispatch stream and a caller's own) each get their own.
+# path's dispatch stream and a caller's own) each get their own.  Two
+# threads may launch on one stream (the serve scheduler and a reload's
+# validation): the entry is created and regrown under `_LOCK`, and each
+# launch holds the tensor it was given until it has enqueued, so a
+# regrow by the other thread cannot free it under the launch.
 _TICKETS: dict = {}
 
 
 def _tickets(dev: torch.device, n: int) -> torch.Tensor:
     key = (dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
-    have = _TICKETS.get(key)
-    if have is None or have.numel() < n:
-        have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
-        _TICKETS[key] = have
+    with _LOCK:
+        have = _TICKETS.get(key)
+        if have is None or have.numel() < n:
+            have = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+            _TICKETS[key] = have
     return have
 
 
@@ -301,7 +317,7 @@ def score_pairs_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
         n_words.data_ptr(), lengths.data_ptr(), cc_fp.data_ptr(),
         num.data_ptr(), den.data_ptr(), B, T, W, per_split, tc,
     )
-    LAUNCHES["score_pairs_fused"] += 1
+    _count("score_pairs_fused")
     _raise_on(err, "score_pairs_fused")
     return num, den
 
@@ -327,10 +343,11 @@ def best_match_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
     buf = torch.empty(3 * B * (1 + (splits if splits > 1 else 0)),
                       dtype=torch.int32, device=dev)
     ptr = buf.data_ptr()
-    scratch = tickets = None
+    scratch = tickets = held = None
     if splits > 1:
         scratch = ptr + 4 * 3 * B
-        tickets = _tickets(dev, -(-B // K1_BM)).data_ptr()
+        held = _tickets(dev, -(-B // K1_BM))
+        tickets = held.data_ptr()
     err = _launch(
         dev, _lib().dice_best_fused,
         meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
@@ -338,7 +355,8 @@ def best_match_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp):
         ptr, ptr + 4 * B, ptr + 8 * B, scratch, tickets,
         B, T, W, per_split, tc,
     )
-    LAUNCHES["best_match_fused"] += 1
+    del held  # enqueued: a regrow may free the tickets now
+    _count("best_match_fused")
     _raise_on(err, "best_match_fused")
     return buf[: 3 * B].view(3, B).unbind(0)
 
@@ -416,7 +434,7 @@ def overlap_pairs_mma(tpl_unpacked, file_bits, n_templates: int):
         tpl_unpacked.data_ptr(), file_bits.data_ptr(), out.data_ptr(),
         B, T, W, t_pad, bn, splits,
     )
-    LAUNCHES["overlap_pairs_mma"] += 1
+    _count("overlap_pairs_mma")
     _raise_on(err, "overlap_pairs_mma")
     return out
 
@@ -485,7 +503,7 @@ def topk_exact(num, den, k: int):
         dev, _lib().dice_topk_exact,
         num.data_ptr(), den.data_ptr(), buf.data_ptr(), B, T, k, lanes, P, R,
     )
-    LAUNCHES["topk_exact"] += 1
+    _count("topk_exact")
     _raise_on(err, "topk_exact")
     return buf.unbind(0)
 
@@ -532,10 +550,11 @@ def topk_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp, k: int):
     buf = torch.empty(3 * B * k * (1 + (splits if splits > 1 else 0)),
                       dtype=torch.int32, device=dev)
     ptr = buf.data_ptr()
-    scratch = tickets = None
+    scratch = tickets = held = None
     if splits > 1:
         scratch = ptr + 4 * 3 * B * k
-        tickets = _tickets(dev, -(-B // K1_BM)).data_ptr()
+        held = _tickets(dev, -(-B // K1_BM))
+        tickets = held.data_ptr()
     err = _launch(
         dev, _lib().dice_topk_fused,
         meta.data_ptr(), tpl_bits.data_ptr(), file_bits.data_ptr(),
@@ -543,7 +562,8 @@ def topk_fused(meta, tpl_bits, file_bits, n_words, lengths, cc_fp, k: int):
         ptr, ptr + 4 * B * k, ptr + 8 * B * k, scratch, tickets,
         B, T, W, per_split, tc, k,
     )
-    LAUNCHES["topk_fused"] += 1
+    del held  # enqueued: a regrow may free the tickets now
+    _count("topk_fused")
     _raise_on(err, "topk_fused")
     return buf[: 3 * B * k].view(3, B, k).unbind(0)
 
@@ -684,6 +704,11 @@ class BestMatchScorer:
             dispatch_stream(self.device.index)
             if self.device.type == "cuda" else None
         )
+        if self.stream is not None:
+            # the corpus constants above were made on the caller's current
+            # stream (a serve reload makes them on its own thread): the
+            # dispatch stream waits for them before its first launch
+            self.stream.wait_stream(torch.cuda.current_stream(self.device))
 
     def host_rows(self, capacity: int) -> HostRows:
         return HostRows(capacity, self.n_lanes,

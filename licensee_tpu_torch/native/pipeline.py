@@ -18,14 +18,18 @@ Every pattern string is shipped to C++ from the port's own copies
 LICENSEE_TPU_NO_NATIVE set), in which case callers keep the pure-Python
 path.  The library is built from the repo's ``native/`` sources by
 `native/build.py`.  The Reference-matcher scan (``refscan_*``) serves
-the readme chain's fallback (`kernels/batch.py:_reference_match`); the
-profile counters wait for the obs slice.
+the readme chain's fallback (`kernels/batch.py:_reference_match`).  The
+library's stage.*/count.* profile counters come out through the
+module-level `profile_dump` / `profile_reset`, merged with the rows the
+pure-Python path adds (`py_profile_add`), for the obs registry
+(`obs/export.py:NativeProfileSource`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import re
+import threading
 
 import numpy as np
 
@@ -414,6 +418,10 @@ class NativePipeline:
         lib.pipe_refscan_resolve.argtypes = [
             ctypes.c_void_p, ctypes.c_char_p, ctypes.c_size_t,
         ]
+        lib.pipe_profile_dump.restype = ctypes.c_void_p
+        lib.pipe_profile_dump.argtypes = [ctypes.POINTER(ctypes.c_size_t)]
+        lib.pipe_profile_reset.restype = None
+        lib.pipe_profile_reset.argtypes = []
 
         config = _build_config()
         self._handle = lib.pipe_new(config, len(config))
@@ -656,6 +664,30 @@ class NativePipeline:
         data = section.encode("utf-8")
         return self._lib.pipe_refscan_resolve(handle, data, len(data))
 
+    def profile_dump(self) -> dict[str, float]:
+        """The library's cumulative stage.*/count.* rows (and, with
+        LICENSEE_TPU_PIPE_PROFILE=1 set at process start, its per-pass
+        seconds)."""
+        n = ctypes.c_size_t()
+        ptr = self._lib.pipe_profile_dump(ctypes.byref(n))
+        if not ptr:
+            return {}
+        try:
+            text = ctypes.string_at(ptr, n.value).decode()
+        finally:
+            self._lib.pipe_free(ptr)
+        out = {}
+        for line in text.splitlines():
+            name, _, secs = line.partition("=")
+            if secs:
+                out[name] = float(secs)
+        return out
+
+    def profile_reset(self) -> bool:
+        """Zero every counter `profile_dump` reports."""
+        self._lib.pipe_profile_reset()
+        return True
+
     def exact_hash(self, wordset) -> bytes:
         """The 16-byte hash pipe_featurize computes, for a Python-side
         wordset (e.g. a compiled template's).  The hash is an
@@ -675,3 +707,43 @@ def load() -> NativePipeline | None:
         except NativeUnavailable:
             _failed = True
     return _instance
+
+
+# -- the profile surface, native and pure-Python merged ------------------------
+#
+# One call pair that works whether or not the native library loaded:
+# with it, the library's stage.*/count.* counters; without it, the rows
+# the pure-Python featurize path adds under the same names, so the obs
+# registry never cares which path served the traffic.
+
+_py_profile: dict[str, float] = {}
+_py_profile_lock = threading.Lock()
+
+
+def py_profile_add(**rows: float) -> None:
+    """Accumulate pure-Python-path rows, e.g. ``py_profile_add(**{
+    "count.blobs": 1, "stage.normalize_s": dt})``."""
+    with _py_profile_lock:
+        for name, v in rows.items():
+            _py_profile[name] = _py_profile.get(name, 0.0) + v
+
+
+def profile_dump() -> dict[str, float]:
+    """Cumulative stage.*/count.* rows, native and Python-side merged
+    (the key names are the same either way).  Never builds the library:
+    a metrics scrape reads only what is already loaded."""
+    pipe = _instance
+    native = pipe.profile_dump() if pipe is not None else {}
+    with _py_profile_lock:
+        py = dict(_py_profile)
+    for name, v in py.items():
+        native[name] = native.get(name, 0.0) + v
+    return native
+
+
+def profile_reset() -> bool:
+    """Zero the cumulative profile surface (both sides)."""
+    with _py_profile_lock:
+        _py_profile.clear()
+    pipe = _instance
+    return pipe.profile_reset() if pipe is not None else True

@@ -1,15 +1,24 @@
 """Per-lane occupancy clocks for the overlap pipeline.
 
 The port's copy of `licensee_tpu/obs/pipeline.py`.  The batch run loop
-(`projects/batch_project.py`) has three lanes, featurize, device and
-writer, that are meant to run concurrently; when they do, throughput at
-scale is 1/max(lane).  A :class:`PipelineLanes` accumulates busy-seconds
-per lane (a lane is busy while >= 1 of its workers is inside it) and
-counts the dispatched-but-unfinished device chunks; `occupancy()`
-snapshots both for the run's stats.  The device lane is busy from a
-group's submit to its await, so its share bounds the card's busy share
-from above.  The metrics registry and its Prometheus gauges wait for
-the obs slice.
+(`projects/batch_project.py`) and the serve flush/completion pair
+(`serve/scheduler.py`) have three lanes, featurize, device and writer,
+that are meant to run concurrently; when they do, throughput at scale is
+1/max(lane).  A :class:`PipelineLanes` accumulates busy-seconds per lane
+(a lane is busy while >= 1 of its workers is inside it) and counts the
+dispatched-but-unfinished device chunks; `occupancy()` snapshots both
+for the run's stats, and `register` wires them into a metrics registry
+as the gauges
+
+* ``pipeline_featurize_busy`` / ``pipeline_device_busy`` /
+  ``pipeline_writer_busy``: each lane's occupancy as a fraction of wall
+  time since the clock started (1.0: the lane never idles, it is the
+  bottleneck);
+* ``pipeline_inflight_chunks``: the device chunks in flight right now.
+
+Re-registering on the same registry re-points the gauges at the newest
+clock.  The device lane is busy from a group's submit to its await, so
+its share bounds the card's busy share from above.
 """
 
 from __future__ import annotations
@@ -36,7 +45,8 @@ class PipelineLanes:
     ``enter``/``exit_`` bracket lane work (re-entrant across threads: a
     lane with N workers is busy while any of them is in it);
     ``inflight`` tracks dispatched device chunks.  ``occupancy()``
-    snapshots {lane: busy_fraction} for stats/bench rows."""
+    snapshots {lane: busy_fraction} for stats/bench rows; ``register``
+    wires the live gauges."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -122,3 +132,26 @@ class PipelineLanes:
                 },
                 "inflight_chunks": self._inflight,
             }
+
+    def _occupancy_of(self, lane: str) -> float:
+        now = time.perf_counter()
+        with self._lock:
+            elapsed = max(now - self._t0, 1e-9)
+            return min(self._busy_s(lane, now) / elapsed, 1.0)
+
+    def register(self, registry) -> "PipelineLanes":
+        """Wire the occupancy + in-flight gauges into ``registry``
+        (idempotent per registry; the newest clock wins)."""
+        for name in LANES:
+            registry.gauge(
+                f"pipeline_{name}_busy",
+                f"Occupancy of the pipeline's {name} lane (busy "
+                "fraction of wall time since the run started; 1.0 = "
+                "this lane is the bottleneck)",
+            ).set_fn(lambda lane=name: self._occupancy_of(lane))
+        registry.gauge(
+            "pipeline_inflight_chunks",
+            "Device chunks dispatched but not yet finished (the live "
+            "overlap pipeline depth)",
+        ).set_fn(self.inflight)
+        return self

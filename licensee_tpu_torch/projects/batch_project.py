@@ -29,8 +29,8 @@ rewritten archive refuses a resume.  After the run, the container-level
 verdicts go to ``<output>.containers.jsonl`` (`ingest/verdict.py`).
 
 What waits for later slices (ROADMAP A): stripes and multi-host runs,
-several devices (lanes), remote containers, progress lines and the obs
-registry.
+several devices (lanes), remote containers, progress lines and the run's
+metrics through the obs registry (`--stats-file`, `--prom-file`).
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Shared blob featurize + prefilter helpers of the batch pipeline.
+"""Shared blob featurize + prefilter helpers of the batch pipeline and
+the serve path.
 
 The port's counterpart of `licensee_tpu/serve/featurize.py`: the capped
 read policy, the route-aware dispatch/content cache key, the batch
@@ -6,8 +7,9 @@ produce core (route + read + dedupe + prefilter + featurize, with its
 read hook and stage seconds, and the contents kept for the attribution
 pass) and the JSONL row renderer, so the port writes rows byte-identical
 to the JAX package's.  Container members come in through the read hook
-(`ingest/sources.py`).  The single-request twin the online micro-batcher
-calls waits for a later slice (ROADMAP A).
+(`ingest/sources.py`).  ``featurize_request`` is the single-request twin
+the online micro-batcher (`serve/scheduler.py`) calls at admission, on
+the same `prepare_batch` chain, so the two paths cannot drift.
 """
 
 from __future__ import annotations
@@ -224,4 +226,32 @@ def produce_batch(
     return (
         read_errs, keys, preset, dup_of, routes, prepared, kept, pre_rows,
         (t1 - t0, t2 - t1),
+    )
+
+
+def featurize_request(
+    classifier,
+    content: bytes | str,
+    filename: str | None = None,
+    route: str | None = None,
+):
+    """One online request through route -> prefilter -> featurize: the
+    single-blob twin of ``produce_batch``.
+
+    Returns a size-1 PreparedBatch: ``results[0]`` is a finished
+    BlobResult when a host stage answered (Copyright/Exact prefilter, a
+    package matcher, an unrouted filename, a README with no license
+    section, a featurize error) and None when the row is Dice-bound: its
+    feature arrays are device-ready and the scheduler coalesces it into
+    the next micro-batch (`BatchClassifier.merge_prepared`)."""
+    if route is None and classifier.mode == "auto":
+        route = BatchClassifier.route_for(filename)
+        if route is None:
+            return classifier.prepare_batch(
+                [b""], filenames=[filename], preset=[UNROUTED],
+                routes=[None],
+            )
+    routes = [route] if classifier.mode == "auto" else None
+    return classifier.prepare_batch(
+        [content], filenames=[filename], routes=routes
     )

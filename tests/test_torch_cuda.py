@@ -185,6 +185,29 @@ def test_fused_k1_at_detect_batches(card, B, T, W):
     random bits, on blobs that are copies of templates (exact ties across
     the split boundaries), and with every template excluded (the CC
     guard on flagged rows, then no valid template at all)."""
+    k1_small_batch_cases(card, B, T, W)
+
+
+# the flush sizes of `serve` around its schedule's changes at T=608: one
+# 64-row tile more at 128, 192 and 256, and 76 splits of 8 templates up
+# to B=192, 38 of 16 from B=193 (with a partial last tile below 256)
+SERVE_B = [127, 128, 129, 192, 193, 255, 256]
+
+
+@pytest.mark.parametrize("T, W", [(47, 112), (608, 132)])
+@pytest.mark.parametrize("B", SERVE_B)
+def test_fused_k1_at_serve_flush_sizes(card, B, T, W):
+    """K1's first-max at the flush sizes the serve micro-batcher launches
+    it at (its real row count, 1 to 256), random and ties, as at the
+    detect batches."""
+    n_sms = torch.cuda.get_device_properties(card).multi_processor_count
+    if (T, n_sms) == (608, 132):
+        splits, per_split, _ = dice_cuda.fused_schedule(B, T, W, n_sms)
+        assert (splits, per_split) == ((76, 8) if B <= 192 else (38, 16))
+    k1_small_batch_cases(card, B, T, W)
+
+
+def k1_small_batch_cases(card, B, T, W):
     rng = np.random.default_rng(B * 10 + T)
     args = k1_case(card, rng, B, T, W)
     n_sms = torch.cuda.get_device_properties(card).multi_processor_count
@@ -431,6 +454,120 @@ def test_pipeline_on_the_card_matches_cpu_at_every_depth(card, tmp_path,
         outs[device, depth] = out.read_bytes()
     assert len(set(outs.values())) == 1
     assert len(set(launch_streams)) == 1 and len(launch_streams) > 3
+
+
+# -- serve --------------------------------------------------------------------
+
+
+def serve_texts(n):
+    """``n`` distinct Dice-bound requests: a rendered MIT template with a
+    made-up word appended."""
+    import re
+
+    from licensee_tpu_torch.corpus.license import License
+
+    body = re.sub(r"\[(\w+)\]", "example", License.find("mit").content)
+    return [body + f"\nzqserve{i}\n" for i in range(n)]
+
+
+def test_serve_on_the_card_matches_cpu(card):
+    """A card MicroBatcher at the CLI's defaults (warm start) under 16
+    concurrent clients gives the CPU batcher's verdicts, with no
+    fallback, and launches `best_match_fused` once per bucket at warm-up
+    and once per flush, and nothing else."""
+    import threading
+
+    from licensee_tpu_torch.serve.scheduler import MicroBatcher
+
+    texts = serve_texts(2000)
+    results = {}
+    for device in ("cpu", "cuda"):
+        dice_cuda.reset_launches()
+        b = MicroBatcher(device=device, warm_start=True)
+        warm = dice_cuda.LAUNCHES["best_match_fused"]
+        got = [None] * len(texts)
+
+        def client(k, b=b, got=got):
+            for i in range(k, len(texts), 16):
+                got[i] = b.classify(texts[i], "LICENSE", timeout=120.0)
+
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(16)]
+        try:
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300.0)
+        finally:
+            b.close()
+        assert not any(t.is_alive() for t in threads)
+        sched = b.stats()["scheduler"]
+        assert sched["fallbacks"] == sched["completion_errors"] == 0
+        results[device] = [(r.key, r.matcher, r.confidence) for r in got]
+        if device == "cuda":
+            assert warm == len(b.buckets)
+            assert dice_cuda.LAUNCHES["best_match_fused"] == \
+                warm + sched["device_batches"]
+            assert sum(dice_cuda.LAUNCHES.values()) == \
+                dice_cuda.LAUNCHES["best_match_fused"]
+            per_shape = b.stats()["device"]["per_shape"]
+            assert sorted(per_shape) == list(b.buckets)
+            assert all(v["compiles"] == 1 for v in per_shape.values())
+    assert results["cuda"] == results["cpu"]
+
+
+def test_serve_warmup_sets_up_each_bucket_on_the_card(card):
+    from licensee_tpu_torch.serve.scheduler import MicroBatcher
+
+    b = MicroBatcher(device="cuda", warm_start=True, max_batch=64)
+    try:
+        before = b.stats()["device"]
+        for text in serve_texts(40):
+            b.classify(text, "LICENSE", timeout=60.0)
+        after = b.stats()["device"]
+    finally:
+        b.close()
+    assert before["shapes"] == [8, 32, 64] and before["compiles"] == 3
+    assert before["dispatches"] == 0
+    assert after["compiles"] == 3 and after["dispatches"] > 0
+
+
+def test_serve_device_failure_on_the_card_is_an_error_row(card):
+    """A card batcher whose device submit raises answers a
+    ``device_error`` row, counted under ``fallbacks``; it does not score
+    on the host, whose verdicts would hide the failing kernel."""
+    from licensee_tpu_torch.serve.scheduler import MicroBatcher
+
+    def boom(*_a, **_k):
+        raise RuntimeError("injected device failure")
+
+    b = MicroBatcher(device="cuda", warm_start=True, max_batch=64)
+    try:
+        b.classifier.dispatch_chunks_async = boom
+        res = b.classify(serve_texts(1)[0], "LICENSE", timeout=60.0)
+        sched = b.stats()["scheduler"]
+    finally:
+        b.close()
+    assert (res.key, res.matcher, res.error) == (
+        None, None, "device_error: injected device failure")
+    assert (sched["fallbacks"], sched["completion_errors"]) == (1, 0)
+
+
+def test_validate_classifier_on_the_card(card):
+    """The reload gate runs the candidate's real scorer, K1 on the card,
+    against the host algebra: a sound classifier passes with one launch,
+    one whose matrix on the card was zeroed is refused."""
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+    from licensee_tpu_torch.serve import reload
+
+    clf = BatchClassifier(device="cuda", pad_batch_to=256)
+    dice_cuda.reset_launches()
+    assert reload.validate_classifier(clf) == []
+    assert dice_cuda.LAUNCHES["best_match_fused"] == 1
+    clf.tensors.bits.zero_()
+    problems = reload.validate_classifier(clf)
+    assert problems and any("parity probe" in p or "self-probe" in p
+                            for p in problems)
 
 
 # -- K4's top-k and the --closest / mode paths -------------------------------

@@ -247,10 +247,14 @@ def test_diff_reads_stdin():
 
 
 def test_diff_socket_waits_for_serve():
-    rc, out, err = run(port_main, ["diff", fixture("mit"), "--socket",
-                                   "/nonexistent.sock"])
+    """`diff --socket` with no `serve` worker behind the socket fails as
+    the JAX CLI's does (tests/test_torch_serve.py drives it against a
+    live worker)."""
+    argv = ["diff", fixture("mit"), "--socket", "/nonexistent.sock"]
+    rc, out, err = run(port_main, argv)
     assert rc != 0 and not out
-    assert "serve" in err
+    assert "cannot reach worker" in err
+    assert (rc, out, err) == run(jax_main, argv)
 
 
 def test_help_matches_jax():
@@ -264,9 +268,9 @@ def test_help_matches_jax():
     jax_lines = {line.split()[1]: line for line in jax_out.splitlines()[1:]}
     port_lines = {line.split()[1]: line for line in out.splitlines()[1:]}
     assert {"detect", "diff", "license-path", "version", "help",
-            "batch-detect", "corpus-build"} == set(port_lines)
+            "batch-detect", "corpus-build", "serve"} == set(port_lines)
     for verb in ("detect", "diff", "license-path", "version", "help",
-                 "corpus-build"):
+                 "corpus-build", "serve"):
         assert port_lines[verb].replace("licensee-tpu-torch",
                                         "licensee-tpu") == jax_lines[verb]
     for verb in ("detect", "diff", "license-path", "version", "help"):

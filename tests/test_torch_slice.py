@@ -168,9 +168,11 @@ def test_auto_resolves_by_template_count():
 
 def test_port_imports_no_jax_yaml_or_jax_package():
     """Every module of the port, and chip_smoke.py, in a fresh process,
-    with the port's native pipeline and scanners loaded and `detect`'s
-    chain run (rules, fields, the matchers' lazy imports): no JAX, no
-    PyYAML, nothing of `licensee_tpu`, and no library built inside it."""
+    with the port's native pipeline and scanners loaded, `detect`'s
+    chain run (rules, fields, the matchers' lazy imports) and a `serve`
+    session run (the selftest on the CPU: the scheduler's, the reload's
+    and the diff verb's lazy imports): no JAX, no PyYAML, nothing of
+    `licensee_tpu`, and no library built inside it."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import licensee_tpu_torch\n"
@@ -216,9 +218,28 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "'licensee_tpu_torch.projects.fs_project', "
         "'licensee_tpu_torch.projects.github_project', "
         "'licensee_tpu_torch.corpus.rules', "
-        "'licensee_tpu_torch.cli.main'}\n"
+        "'licensee_tpu_torch.cli.main', "
+        "'licensee_tpu_torch.obs', "
+        "'licensee_tpu_torch.obs.registry', "
+        "'licensee_tpu_torch.obs.tracing', "
+        "'licensee_tpu_torch.obs.export', "
+        "'licensee_tpu_torch.obs.slo', "
+        "'licensee_tpu_torch.obs.flight', "
+        "'licensee_tpu_torch.serve', "
+        "'licensee_tpu_torch.serve.cache', "
+        "'licensee_tpu_torch.serve.stats', "
+        "'licensee_tpu_torch.serve.reload', "
+        "'licensee_tpu_torch.serve.scheduler', "
+        "'licensee_tpu_torch.serve.eventloop', "
+        "'licensee_tpu_torch.serve.diffverb', "
+        "'licensee_tpu_torch.serve.server', "
+        "'licensee_tpu_torch.fleet', "
+        "'licensee_tpu_torch.fleet.wire', "
+        "'licensee_tpu_torch.normalize.worddiff'}\n"
+        "from licensee_tpu_torch.serve import MicroBatcher, selftest\n"
+        "assert selftest(verbose=False, device='cpu') == 0\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
-        "sys.exit(1 if bad or len(names) < 45 or new - set(names) else 0)\n"
+        "sys.exit(1 if bad or len(names) < 69 or new - set(names) else 0)\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
