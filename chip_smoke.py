@@ -55,18 +55,20 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    kernels.  Each output must be byte-identical to the same run with
    --device cpu, each kernel must have launched during its run, and the
    K1 runs must have run neither the planes kernel nor an argmax on the
-   card.  The native vendored run must also be byte-identical to the
-   same run with LICENSEE_TPU_NO_NATIVE=1 (the pure-Python featurizer,
-   in a child process);
+   card.  The native vendored run's first 600 rows must also be
+   byte-identical to the same rows with LICENSEE_TPU_NO_NATIVE=1 (the
+   pure-Python featurizer, in a child process);
 5. default flags: `batch-detect` as a user types it (`auto` -> K1, the
    native featurizer, workers = the host's CPU count, --pipeline-depth
    2, --coalesce-batches 32, resume on) over a seeded manifest of 50,001
    vendored rows over 12,000 distinct files, most rows verbatim repeats
    of a few hundred texts, as in real license corpora; then the same
    over the T=608 manifest of phase 4.  Each output must be
-   byte-identical to --device cpu and to --pipeline-depth 1 --workers 1.
-   The vendored run is also made with --featurize-procs (one spawned
-   worker process per CPU) and must give the same bytes; its output is
+   byte-identical to --device cpu and to --pipeline-depth 1 --workers 1
+   (for the vendored run, over its first 12,001 rows).
+   The vendored run's first 12,001 rows are also run with
+   --featurize-procs (one spawned worker process per CPU) and must give
+   the same bytes; its output is
    then cut mid-line and resumed: the sha256 must equal the full run's
    and the sidecar must not change.  A last run under torch.profiler
    gives the card's busy and idle share.
@@ -91,9 +93,10 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    written in Python where git is missing) and listed as container
    entries, ~10,000 expanded rows, under --mode auto --closest 3
    --attribution and --mode license at default flags, each against
-   --device cpu, --pipeline-depth 1 --workers 1 and --featurize-procs 4
-   (the JSONL and OUT.containers.jsonl byte for byte), and the resume
-   drill, which must give both files' sha256 again;
+   --device cpu and --pipeline-depth 1 --workers 1 (the JSONL and
+   OUT.containers.jsonl byte for byte) and, over the first 300 entries,
+   --featurize-procs 4, and the resume drill, which must give both
+   files' sha256 again;
 8. detect: `detect` and `detect --json` over every fixture directory
    against fixtures.yml (read by the port's `corpus/yamlite.py`) and
    detect.json, four fixtures as git repositories (written in Python,
@@ -114,7 +117,7 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    session over a mixed crawl manifest, each with repeats; over a Unix
    socket (`UnixServer`, `serve_unix`'s server, in a thread) 64
    closed-loop clients in a child process, each keeping 8 requests in
-   flight, send 20,000 requests, mostly distinct Dice-bound variants
+   flight, send 10,000 requests, mostly distinct Dice-bound variants
    (a test of K1 at every flush size up to 256, not a users' traffic
    mix), and one client sends one request at a time (every flush a
    deadline flush at B=1), at T=47 and with the 608-template corpus;
@@ -142,13 +145,42 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    its total, queue_wait and device stages, its flush reasons and its
    flushes per bucket, the host batcher's beside each socket run, the
    two threads' split, and the card's busy share over a profiled
-   64-client run, beside the card's name and power limit.
+   64-client run, beside the card's name and power limit;
+10. scale: K5 (`parallel/mesh.py:make_sharded_scorer`) on meshes that
+   repeat the card, (1,1), (2,1), (1,2) and (2,2) at B=4096, T=47 and
+   T=608, top-1 and top-3, bit-identical to the plain scorer with one K1
+   launch a data shard or one K2 launch a (data, model) block, the
+   (2,2) mesh timed beside its bound; then, reusing phases 4, 5 and 7's
+   manifests and outputs: `batch-detect --mesh 1,1` and `--device-lanes
+   1` against the default run at both widths; a `serve --mesh 1,1`
+   session against a device='cpu' batcher; phase 7's 2,000 archives
+   served over HTTP by a loopback blob host in a child process (the git
+   checkouts stay local) under both of phase 7's modes, against
+   --device cpu, --pipeline-depth 1 --workers 1 and phase 7's local run
+   (entry paths aside; the two twins over the first 600 entries), and a
+   remote git repository refused; --stripes
+   1, 2 and 4 over phase 5's 50,001-row manifest, each merged output
+   byte-identical to phase 5's run, with --stats-file (the merged stats
+   must reconcile), --prom-file (each exposition must pass
+   `check_exposition`, each stripe must have launched K1) and
+   --progress; a stripe SIGKILLed mid-run (over the first 25,001 rows)
+   whose restart the runner counts and whose merge reaches the same
+   sha256; --stripes elastic
+   over phase 4's manifest; --stripes 2 over 200 remote containers; an
+   archive republished between a cut and the resume, which must be
+   refused; and `batch-detect --selftest`, `--selftest-remote` and
+   `--selftest-autoscale` as child processes on the card, beside the
+   untimed drills.  A `stripes
+   timing:` line gives each striped run's rows/s, summed read seconds
+   and the card's utilization (nvidia-smi) beside its name and power
+   limit.
 
 A row's ``launches`` counts its kernel over its width's card runs of
-phases 4 to 8, each run between a reset of the counts and a read (the
-B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows: phase 9's runs
-at their width, the reload's at T=47); the planes kernel
-(`score_pairs_fused`) launches on no main path.
+phases 4 to 8 and 10, each run between a reset of the counts and a read
+(the B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows: phase 9's
+runs at their width, the reload's at T=47; K5's rows: phase 10's
+`--mesh 1,1` runs); the planes kernel (`score_pairs_fused`) launches on
+no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -399,7 +431,8 @@ def phase_build() -> None:
 # -- phase 3: kernels ----------------------------------------------------------
 
 
-def cuda_time_ms(torch, fn, min_total_s: float = 0.3, max_iters: int = 50):
+def cuda_time_ms(torch, fn, min_total_s: float = 0.3, max_iters: int = 50,
+                 min_iters: int = 3):
     """Mean milliseconds per call over a run of calls timed by CUDA
     events, after a warm-up call; the count adapts to the call's time."""
     fn()
@@ -408,7 +441,7 @@ def cuda_time_ms(torch, fn, min_total_s: float = 0.3, max_iters: int = 50):
     fn()
     torch.cuda.synchronize()
     once = time.perf_counter() - t0
-    iters = int(max(3, min(max_iters, min_total_s / max(once, 1e-6))))
+    iters = int(max(min_iters, min(max_iters, min_total_s / max(once, 1e-6))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -855,7 +888,9 @@ def kernel_row(torch, name, source, replaces, B, T, W, run, err, fn, plain,
                shape=None) -> dict:
     ms = cuda_time_ms(torch, fn)
     device_ms = graph_time_ms(torch, fn, out_bytes)
-    plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5)
+    # the plain versions take seconds at B=262144: one timed call there
+    plain_ms = cuda_time_ms(torch, plain, min_total_s=0.5, max_iters=5,
+                            min_iters=1)
     library_ms = library_device_ms = None
     if library:
         library_ms = cuda_time_ms(torch, library)
@@ -1296,10 +1331,28 @@ def run_slice(torch, run: str, root: str, manifest: str,
             f"{kernel} launches {launches[run, kernel]}")
 
 
+def prefix_manifest(manifest: str, n: int) -> str:
+    """A manifest of the first ``n`` entries of ``manifest``: a run over
+    it writes the first rows of the full run's output (each row depends
+    on its entry alone), so a repeat can run at a smaller depth."""
+    with open(manifest, encoding="utf-8") as fh:
+        lines = fh.read().splitlines()[:n]
+    path = f"{manifest}.first{n}"
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def first_lines(data: bytes, n: int) -> bytes:
+    return b"".join(data.splitlines(keepends=True)[:n])
+
+
 def featurizer_check(root: str, manifest: str) -> None:
-    """The vendored slice's native K1 run against the same run on the
-    pure-Python featurizer (LICENSEE_TPU_NO_NATIVE=1, in a child process
-    that the call waits for)."""
+    """The first 600 rows of the vendored slice's native K1 run against
+    the same rows on the pure-Python featurizer
+    (LICENSEE_TPU_NO_NATIVE=1, in a child process that the call waits
+    for)."""
+    manifest = prefix_manifest(manifest, 600)
     out = os.path.join(root, "vendored.pallas.no-native.jsonl")
     env = dict(os.environ, LICENSEE_TPU_NO_NATIVE="1")
     t0 = time.perf_counter()
@@ -1317,7 +1370,7 @@ def featurizer_check(root: str, manifest: str) -> None:
     stats = json.loads(child.stderr.strip().splitlines()[-1])
     python = read_rows(out, n_rows, "featurizer check")
     with open(os.path.join(root, "vendored.pallas.cuda.jsonl"), "rb") as fh:
-        native = fh.read()
+        native = first_lines(fh.read(), n_rows)
     if python != native:
         raise AssertionError("the native featurizer's JSONL differs from "
                              "the pure-Python featurizer's")
@@ -1364,23 +1417,41 @@ def default_flags(torch, what: str, root: str, manifest: str,
     if got["best_match_fused"] < 1:
         raise AssertionError(f"{what}: best_match_fused never launched on "
                              "the main path at default flags")
+    # the twins of the 50,001-row run over its first 12,001 rows
+    depth = 12001 if drill else n_rows
+    twin_manifest = prefix_manifest(manifest, depth) if drill else manifest
     for label, flags in (("cpu", ["--device", "cpu"]),
                          ("depth1-workers1",
                           ["--pipeline-depth", "1", "--workers", "1"])):
-        if one(label, *flags)[1] != full:
+        out_t = os.path.join(root, f"{run}.{label}.jsonl")
+        data, _stats, _s, got = drive(
+            torch, f"{what} {label}",
+            ["batch-detect", twin_manifest, "--output", out_t, *extra,
+             *flags], depth)
+        for name, n in got.items():
+            launches[run, name] = launches.get((run, name), 0) + n
+        if data != first_lines(full, depth):
             raise AssertionError(f"{what}: the {label} JSONL differs from "
                                  "the default run's")
-    log(f"default flags {what}: byte-identical to --device cpu and to "
-        "--pipeline-depth 1 --workers 1")
+    log(f"default flags {what}: the first {depth} rows byte-identical to "
+        "--device cpu and to --pipeline-depth 1 --workers 1")
     if not drill:
         return
     # worker processes instead of threads, spawned beside the parent's
     # live CUDA context: the same bytes, and how far the GIL holds the
     # threads back
     procs = str(os.cpu_count())
-    if one(f"procs{procs}", "--featurize-procs", procs)[1] != full:
+    out_p = os.path.join(root, f"{run}.procs{procs}.jsonl")
+    data, _stats, _s, got = drive(
+        torch, f"{what} procs{procs}, first {depth} rows",
+        ["batch-detect", prefix_manifest(manifest, depth), "--output",
+         out_p, *extra, "--featurize-procs", procs], depth)
+    for name, n in got.items():
+        launches[run, name] = launches.get((run, name), 0) + n
+    if data != first_lines(full, depth):
         raise AssertionError(f"{what}: the --featurize-procs JSONL differs")
-    log(f"default flags {what}: --featurize-procs {procs} byte-identical")
+    log(f"default flags {what}: --featurize-procs {procs} over the first "
+        f"{depth} rows byte-identical to those rows of the default run")
     got = resume_drill(torch, what, out,
                        ["batch-detect", manifest, "--output", out, *extra],
                        full, n_rows)
@@ -1411,12 +1482,20 @@ def busy_share(torch, what: str, run, full: bytes) -> None:
 
 
 def phase_slice(np, torch, seed: int) -> dict:
-    """Phases 4 to 8; returns {(run, kernel): launches}."""
+    """Phases 4 to 8 and 10 (which reuses their manifests and outputs);
+    returns {(run, kernel): launches}."""
     from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         vendored = write_manifest(np, os.path.join(root, "vendored"), seed)
+        t_phase = time.perf_counter()
+
+        def took(what: str) -> None:
+            nonlocal t_phase
+            log(f"{what} took {time.perf_counter() - t_phase:.1f} s")
+            t_phase = time.perf_counter()
+
         run_slice(torch, "vendored", root, vendored, [], launches)
         featurizer_check(root, vendored)
         t0 = time.perf_counter()
@@ -1428,6 +1507,7 @@ def phase_slice(np, torch, seed: int) -> dict:
             f"manifest written in {time.perf_counter() - t0:.1f} s")
         run_slice(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
                   launches)
+        took("phase 4")
 
         t0 = time.perf_counter()
         big = write_big_manifest(np, os.path.join(root, "big"), seed)
@@ -1437,9 +1517,19 @@ def phase_slice(np, torch, seed: int) -> dict:
                       "vendored", drill=True)
         default_flags(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
                       launches, "spdx", drill=False)
+        took("phase 5")
         modes(np, torch, seed, root, spdx, spdx_dir, launches)
-        containers(np, torch, seed, root, launches)
+        took("phase 6")
+        packed = containers(np, torch, seed, root, launches)
+        took("phase 7")
         phase_detect(torch, root, vendored, launches)
+        took("phase 8")
+        with open(os.path.join(root, "vendored.default.jsonl"), "rb") as fh:
+            big_full = fh.read()
+        phase_scale(np, torch, seed, root, {
+            "big": big, "big_full": big_full, "vendored": vendored,
+            "spdx": spdx, "spdx_dir": spdx_dir, "containers": packed,
+        }, launches)
     return launches
 
 
@@ -1713,17 +1803,23 @@ def write_container_manifest(np, root: str, seed: int) -> tuple:
     return manifest, n_rows, kinds
 
 
-def containers(np, torch, seed: int, root: str, launches: dict) -> None:
+def containers(np, torch, seed: int, root: str, launches: dict) -> dict:
     """Phase 7: `batch-detect` over container entries at default flags.
     The mixed crawl manifest's repositories packed as tars, compressed
     tars, zips and git checkouts expand to ~10,000 member rows, run
     under --mode auto --closest 3 --attribution and --mode license, each
-    against --device cpu, --pipeline-depth 1 --workers 1 and
-    --featurize-procs 4 (the JSONL and OUT.containers.jsonl byte for
-    byte), with the resume drill (both sha256s)."""
+    against --device cpu and --pipeline-depth 1 --workers 1 (the JSONL
+    and OUT.containers.jsonl byte for byte) and, over the first 300
+    entries, --featurize-procs 4, with the resume drill (both sha256s).
+    Returns the manifest,
+    its rows, the archives' directory and each mode's (flags, JSONL,
+    container verdicts, stats) for phase 10."""
     t0 = time.perf_counter()
     manifest, n_rows, kinds = write_container_manifest(
         np, os.path.join(root, "containers"), seed)
+    report = {"manifest": manifest, "n_rows": n_rows,
+              "packed": os.path.join(root, "containers", "packed"),
+              "modes": {}}
     log(f"containers: {sum(kinds.values())} containers {json.dumps(kinds)}, "
         f"{n_rows} expanded rows, written in {time.perf_counter() - t0:.1f} s; "
         f"{smi('name,power.limit')}")
@@ -1757,19 +1853,612 @@ def containers(np, torch, seed: int, root: str, launches: dict) -> None:
             f"{n_verdicts} container rows")
         for twin, extra in (("cpu", ["--device", "cpu"]),
                             ("depth1-workers1",
-                             ["--pipeline-depth", "1", "--workers", "1"]),
-                            ("procs4", ["--featurize-procs", "4"])):
+                             ["--pipeline-depth", "1", "--workers", "1"])):
             _o, _a, data, twin_verdicts, _st, _g = one(twin, *extra)
             if data != full or twin_verdicts != verdicts:
                 raise AssertionError(f"containers {label}: the {twin} JSONL "
                                      "or container verdicts differ")
+        # worker processes over the first 300 entries: a prefix of the
+        # rows, and container verdicts each among the full run's
+        part = prefix_manifest(manifest, 300)
+        n_part = count_rows_expanded(part)
+        out_p = os.path.join(root, f"containers.{label}.procs4.jsonl")
+        data, _st, _s, got = drive(
+            torch, f"containers {label} procs4, first 300 entries",
+            ["batch-detect", part, "--output", out_p, *flags,
+             "--featurize-procs", "4"], n_part)
+        for k, c in got.items():
+            launches["vendored", k] = launches.get(("vendored", k), 0) + c
+        with open(out_p + ".containers.jsonl", "rb") as fh:
+            part_verdicts = fh.read().splitlines()
+        if data != first_lines(full, n_part) or not set(
+                part_verdicts) <= set(verdicts.splitlines()):
+            raise AssertionError(f"containers {label}: the procs4 JSONL or "
+                                 "container verdicts differ")
         log(f"containers {label}: JSONL and .containers.jsonl byte-identical "
-            "to --device cpu, --pipeline-depth 1 --workers 1 and "
-            "--featurize-procs 4")
+            "to --device cpu and --pipeline-depth 1 --workers 1, and "
+            f"--featurize-procs 4 over the first 300 entries ({n_part} rows) "
+            "to those rows")
         got = resume_drill(torch, f"containers {label}", out, argv, full,
                            n_rows, derived=(".containers.jsonl",))
         for k, c in got.items():
             launches["vendored", k] = launches.get(("vendored", k), 0) + c
+        report["modes"][label] = (flags, full, verdicts, stats)
+    return report
+
+
+# -- phase 10: scale ---------------------------------------------------------------
+
+K5_MESHES = ((1, 1), (2, 1), (1, 2), (2, 2))
+
+
+def phase_k5(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
+    """Phase 10's kernels: K5 (`parallel/mesh.py:make_sharded_scorer`)
+    over meshes that repeat the card (`build_mesh(devices=[cuda:0] * n)`)
+    at B=4096, T=47 and T=608, top-1 and top-3, bit-identical to the plain
+    scorer (`kernels/dice_ref.py`), with one K1 launch a data shard (one
+    model shard) or one K2 launch a (data, model) block.  The (2, 2)
+    mesh's top-1 is timed beside its bound, and the (1, 1) mesh's beside
+    it."""
+    from licensee_tpu_torch.kernels import dice_cuda, dice_ref
+    from licensee_tpu_torch.parallel.mesh import (
+        build_mesh,
+        make_sharded_scorer,
+    )
+
+    rng = np.random.default_rng(seed + 10)
+    rows = []
+    for label, T, W, run in (("main", 47, 112, "vendored"),
+                             ("main608", SPDX_T, 132, "spdx")):
+        B = MAIN_B
+        ct, feats = random_case(np, torch, rng, B, T, W)
+        num, den = dice_ref.score_pairs(ct, *feats)
+        top_k = dice_ref.topk_candidates(num, den, CLOSEST)
+        wants = {0: dice_ref.argmax_exact(num, den),
+                 CLOSEST: (*(c[:, 0] for c in top_k), *top_k)}
+        for D, M in K5_MESHES:
+            mesh = build_mesh(D, M, devices=["cuda:0"] * (D * M))
+            for k, want in wants.items():
+                fn = make_sharded_scorer(ct, mesh, "popcount", k)
+                torch.cuda.synchronize()
+                dice_cuda.reset_launches()
+                got = fn(*feats)
+                torch.cuda.synchronize()
+                launched = {n: c for n, c in dice_cuda.LAUNCHES.items() if c}
+                if M == 1:
+                    expect = {"topk_fused" if k else "best_match_fused": D}
+                else:
+                    expect = {"overlap_pairs_mma": D * M,
+                              **({"topk_exact": D} if k else {})}
+                expect["make_sharded_scorer"] = 1
+                if launched != expect:
+                    raise AssertionError(f"K5 ({D},{M}) @{label} k={k}: "
+                                         f"launched {launched}, not {expect}")
+                err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+                if err or len(got) != len(want):
+                    raise AssertionError(f"K5 ({D},{M}) @{label} k={k}: "
+                                         f"!= plain (max {err})")
+        log(f"K5 @{label}: B={B} T={T} W={W} bit-identical to the plain "
+            f"scorer at meshes {list(K5_MESHES)} on [cuda:0]*n, top-1 and "
+            f"top-{CLOSEST}; one K1 launch a data shard, one K2 a block")
+
+        def plain():
+            return dice_ref.argmax_exact(*dice_ref.score_pairs(ct, *feats))
+
+        fn22 = make_sharded_scorer(
+            ct, build_mesh(2, 2, devices=["cuda:0"] * 4), "popcount")
+        err = held_against_plain(torch, f"K5 (2,2) @{label}",
+                                 lambda: fn22(*feats), plain)
+        # the function's bytes (K1's top-1: the same inputs and outputs)
+        # against the int8 tensor-core operations of the (2, 2) route:
+        # K2 over two lane slices, each padded to whole 4-word stages,
+        # for each of two data rows (together the whole batch)
+        w_pad = -(-(W // 2) // 4) * 4
+        n_bytes = B * W * 4 + T * W * 4 + T * 8 * 4 + B * 9 + 3 * B * 4
+        ops = 2 * B * T * 32 * w_pad * 2
+        row = kernel_row(
+            torch, "make_sharded_scorer" + ("" if label == "main"
+                                            else f"@{label}"),
+            "", "licensee_tpu/parallel/mesh.py:66", B, T, W, run, err,
+            lambda: fn22(*feats), plain, None, n_bytes,
+            ops / INT8_TENSOR_OPS_PER_S * 1e3,
+            f"{ops} int8 tensor-core ops: K2 over 2 lane slices of "
+            f"{w_pad} words", out_bytes=3 * B * 4,
+            shape={"B": B, "T": T, "W": W, "mesh": "2x2"})
+        row["source"] = "licensee_tpu_torch/parallel/mesh.py"
+        rows.append(row)
+        fn11 = make_sharded_scorer(ct, build_mesh(1, 1, devices=["cuda:0"]),
+                                   "popcount")
+        log(f"K5 (1,1) @{label}: ms="
+            f"{cuda_time_ms(torch, lambda: fn11(*feats)):.4f} device_ms="
+            f"{graph_time_ms(torch, lambda: fn11(*feats), 3 * B * 4):.4f} "
+            "(K1 through the mesh's one shard)")
+        del ct, feats, num, den, top_k, wants, fn22, fn11
+        torch.cuda.empty_cache()
+    return rows
+
+
+def mesh_and_lanes(torch, root: str, inputs: dict, launches: dict) -> None:
+    """`batch-detect --mesh 1,1` (K5 over one shard) and `--device-lanes
+    1` over phase 4's vendored and T=608 manifests, byte-identical to the
+    default run; the mesh run must launch K5 and K1, the others not K5."""
+    for run, manifest, extra in (
+            ("vendored", inputs["vendored"], []),
+            ("spdx", inputs["spdx"], ["--corpus", inputs["spdx_dir"]])):
+        n_rows = count_rows(manifest)
+        outs = {}
+        for label, flags in (("default", []), ("mesh1,1", ["--mesh", "1,1"]),
+                             ("lanes1", ["--device-lanes", "1"])):
+            out = os.path.join(root, f"scale.{run}.{label}.jsonl")
+            outs[label], _stats, _s, got = drive(
+                torch, f"scale {run} {label}",
+                ["batch-detect", manifest, "--output", out, *extra, *flags],
+                n_rows)
+            for k, c in got.items():
+                launches[run, k] = launches.get((run, k), 0) + c
+            meshed = label == "mesh1,1"
+            if bool(got["make_sharded_scorer"]) != meshed or not got[
+                    "best_match_fused"]:
+                raise AssertionError(f"scale {run} {label}: launches {got}")
+        if not outs["default"] == outs["mesh1,1"] == outs["lanes1"]:
+            raise AssertionError(f"scale {run}: --mesh 1,1 or --device-lanes "
+                                 "1 differs from the default run")
+        log(f"scale {run}: --mesh 1,1 and --device-lanes 1 byte-identical "
+            "to the default run")
+
+
+def serve_mesh(torch, inputs: dict) -> None:
+    """`serve --mesh 1,1`, one stdio session of phase 4's vendored files
+    through the CLI: its rows equal a device='cpu' batcher's, no fallback,
+    and every flush and warm-up probe one K5 call over one K1 launch."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    with open(inputs["vendored"], encoding="utf-8") as fh:
+        reqs, _by_id = file_requests(fh.read().splitlines()[:700])
+    torch.cuda.synchronize()
+    dice_cuda.reset_launches()
+    rc, out, err, took = run_verb(["serve", "--mesh", "1,1", "--stats"],
+                                  "".join(json.dumps(r) + "\n" for r in reqs))
+    launches = dict(dice_cuda.LAUNCHES)
+    if rc != 0:
+        raise RuntimeError(f"serve --mesh 1,1: exit {rc}: {err[-2000:]}")
+    rows = {r["id"]: r for r in map(json.loads, out.splitlines())}
+    held_to_reference("--mesh 1,1 session", rows,
+                      cpu_rows(reqs, mode="license"))
+    stats = json.loads(err.strip().splitlines()[-1])
+    sched = stats["scheduler"]
+    want = sched["device_batches"] + len(stats["device"]["per_shape"])
+    if (sched["fallbacks"] or sched["completion_errors"]
+            or launches["best_match_fused"] != want
+            or launches["make_sharded_scorer"] != want):
+        raise AssertionError(f"serve --mesh 1,1: launches {launches}, want "
+                             f"{want} of K1 and K5; scheduler {sched}")
+    log(f"serve --mesh 1,1: {len(reqs)} requests in {took:.3f} s "
+        f"({len(reqs) / took:.1f} req/s), rows equal to the device='cpu' "
+        f"batcher's; launches {json.dumps(launches)}")
+
+
+HOST_SCRIPT = """
+import os, sys
+from licensee_tpu_torch.ingest.loopback import LoopbackBlobHost
+root = sys.argv[1]
+blobs = {}
+for name in sorted(os.listdir(root)):
+    path = os.path.join(root, name)
+    if os.path.isfile(path):
+        with open(path, "rb") as fh:
+            blobs[name] = fh.read()
+with LoopbackBlobHost(blobs) as host:
+    print(host.port, flush=True)
+    for line in sys.stdin:
+        verb, _, name = line.strip().partition(" ")
+        if verb == "republish":
+            host.set_content(name, blobs[name] + b"\\0" * 512)
+        elif verb == "restore":
+            host.set_content(name, blobs[name])
+        print("ok", flush=True)
+"""
+
+
+@contextlib.contextmanager
+def blob_host(packed: str):
+    """A `LoopbackBlobHost` over the archives of ``packed`` in a child
+    process (its own interpreter, so its server threads do not share the
+    batch run's): yields (base URL, a function sending it a command)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": repo}
+    proc = subprocess.Popen([sys.executable, "-c", HOST_SCRIPT, packed],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            env=env, cwd=repo, text=True)
+    try:
+        port = int(proc.stdout.readline())
+
+        def command(line: str) -> None:
+            proc.stdin.write(line + "\n")
+            proc.stdin.flush()
+            if proc.stdout.readline().strip() != "ok":
+                raise RuntimeError(f"blob host: no answer to {line!r}")
+
+        yield f"http://127.0.0.1:{port}/", command
+    finally:
+        proc.stdin.close()
+        try:
+            proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+
+
+def remote_manifest(root: str, cont: dict, base: str) -> str:
+    """Phase 7's container manifest with every archive named by its URL
+    on the blob host (git checkouts stay local: git over HTTP is refused)."""
+    prefix = cont["packed"] + os.sep
+    with open(cont["manifest"], encoding="utf-8") as fh:
+        entries = fh.read().splitlines()
+    out = [base + e[len(prefix):] if e.startswith(prefix) and not e.endswith(
+        "::HEAD") else e for e in entries]
+    path = os.path.join(root, "remote.txt")
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(out) + "\n")
+    return path
+
+
+def remote_containers(torch, root: str, cont: dict, base: str, command,
+                      launches: dict) -> dict:
+    """Phase 7's 2,400 repositories with their 2,000 archives served from
+    the blob host (`rtar`, `rctar`, `rzip`), under each of phase 7's two
+    modes: the JSONL and the container verdicts against --device cpu, the
+    pipeline at depth 1 on one worker, and phase 7's local run (apart
+    from the entry paths); a remote git repository is refused.  Returns
+    the remote manifest and the license mode's bytes."""
+    manifest = remote_manifest(root, cont, base)
+    n_rows = cont["n_rows"]
+    local = cont["packed"] + os.sep
+    report = {"manifest": manifest}
+    twins = {}
+    for label, (flags, full, verdicts, stats) in cont["modes"].items():
+        out = os.path.join(root, f"remote.{label}.default.jsonl")
+        data, rstats, took, k = drive(
+            torch, f"remote containers {label} default",
+            ["batch-detect", manifest, "--output", out, *flags], n_rows)
+        for name, c in k.items():
+            launches["vendored", name] = launches.get(
+                ("vendored", name), 0) + c
+        with open(out + ".containers.jsonl", "rb") as fh:
+            rverdicts = fh.read()
+        for twin, extra in (("cpu", ["--device", "cpu"]),
+                            ("depth1-workers1", ["--pipeline-depth", "1",
+                                                 "--workers", "1"])):
+            twins[label, twin] = (flags, extra)
+        if (data.replace(base.encode(), local.encode()) != full
+                or rverdicts.replace(base.encode(), local.encode())
+                != verdicts):
+            raise AssertionError(f"remote containers {label}: the rows "
+                                 "differ from the local containers' run")
+        st, lst = rstats["stage_seconds"], stats["stage_seconds"]
+        log(f"remote containers {label}: {n_rows} rows byte-identical to "
+            f"the local containers' run (entry paths aside); remote "
+            f"{n_rows / st['elapsed']:.1f} rows/s over the run, "
+            f"{n_rows / took:.1f} over the command ({took:.2f} s), read "
+            f"{st.get('read', 0.0):.4f} s; local {n_rows / lst['elapsed']:.1f}"
+            f" rows/s over the run, read {lst.get('read', 0.0):.4f} s")
+        report[label] = (out, data, rverdicts)
+    # the twins of both modes after the timed runs, over the first 600
+    # entries, as child processes one at a time: each keeps connections
+    # to the blob host open for every container, and two at once have
+    # had connections refused
+    part = prefix_manifest(manifest, 600)
+    n_part = count_rows_expanded(part)
+    for (label, twin), (flags, extra) in twins.items():
+        twin_out = os.path.join(root, f"remote.{label}.{twin}.jsonl")
+        proc = cli_process(["batch-detect", part, "--output", twin_out,
+                            *flags, *extra])
+        _o, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"remote containers {label} {twin}: exit "
+                               f"{proc.returncode}: {err[-2000:]}")
+        _out, data, rverdicts = report[label]
+        with open(twin_out, "rb") as fh, open(
+                twin_out + ".containers.jsonl", "rb") as vh:
+            if fh.read() != first_lines(data, n_part) or not set(
+                    vh.read().splitlines()) <= set(rverdicts.splitlines()):
+                raise AssertionError(f"remote containers {label}: the "
+                                     f"{twin} JSONL or container verdicts "
+                                     "differ")
+    log(f"remote containers: --device cpu and --pipeline-depth 1 --workers 1 "
+        f"over the first 600 entries ({n_part} rows) byte-identical to "
+        "those rows, in both modes")
+    rc, _o, err, _s = run_verb([
+        "batch-detect",
+        write_lines(root, "rgit.txt", [base + "repo.git::HEAD"]),
+        "--output", os.path.join(root, "rgit.jsonl")])
+    if rc == 0 or "git-over-HTTP" not in err:
+        raise AssertionError(f"remote git repository not refused: {rc} {err}")
+    log("remote containers: a remote git repository refused "
+        f"({err.strip().splitlines()[-1][:120]})")
+    return report
+
+
+def cli_process(argv: list[str]) -> subprocess.Popen:
+    """The port's CLI as a child process (stdout dropped, stderr piped)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    return subprocess.Popen(
+        [sys.executable, "-m", "licensee_tpu_torch.cli.main", *argv],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo})
+
+
+def write_lines(root: str, name: str, lines: list) -> str:
+    path = os.path.join(root, name)
+    with open(path, "w", encoding="utf-8") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def republish_drill(root: str, remote: dict, base: str, command) -> None:
+    """The license mode's remote output cut mid-line, one archive
+    republished on the host (its ETag and length change), and the resume
+    must be refused: the expansion fingerprint in the sidecar differs."""
+    out, data, _v = remote["license"]
+    with open(out, "wb") as fh:
+        fh.write(data[: int(len(data) * 0.6)])
+    with open(remote["manifest"], encoding="utf-8") as fh:
+        name = next(e for e in fh.read().split() if e.startswith(base)
+                    ).split("::")[0][len(base):]
+    command(f"republish {name}")
+    try:
+        rc, _o, err, _s = run_verb(["batch-detect", remote["manifest"],
+                                    "--output", out])
+    finally:
+        command(f"restore {name}")
+    if rc == 0 or "ingest" not in err:
+        raise AssertionError(f"republished {name}: resume not refused "
+                             f"({rc}): {err[-1000:]}")
+    log(f"remote containers: {name} republished between a cut and the "
+        "resume: the resume refused (the sidecar's ingest fingerprint)")
+
+
+class UtilSampler:
+    """``nvidia-smi``'s utilization.gpu (the share of each ~1/6 s sample
+    period in which a kernel ran) every 100 ms while the block runs,
+    whichever process launched the kernels: the card's busy share of a
+    striped run, whose kernels run in child processes."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=10)
+        vals = [float(v) for v in out.split() if v.strip().isdigit()]
+        self.samples = len(vals)
+        self.mean = sum(vals) / len(vals) / 100 if vals else None
+        return False
+
+    def describe(self) -> str:
+        return ("nvidia-smi utilization.gpu not read" if self.mean is None
+                else f"nvidia-smi utilization.gpu mean {self.mean:.4f} over "
+                f"{self.samples} samples")
+
+
+def striped(torch, what: str, root: str, manifest: str, n: str,
+            full: bytes, extra: list = (), verdicts: bytes = None) -> dict:
+    """One `batch-detect --stripes N` run through the CLI with
+    --stats-file, --prom-file and --progress: the merged output must be
+    ``full`` (and ``verdicts``), its stats reconcile, every exposition
+    pass `check_exposition`, every stripe launch K1 on the card, no
+    stripe restart, and the progress lines parse.  Returns its numbers."""
+    from licensee_tpu_torch.obs import check_exposition
+
+    out = os.path.join(root, f"stripes.{what}.jsonl")
+    argv = ["batch-detect", manifest, "--output", out, "--stripes", n,
+            "--stats", "--stats-file", out + ".stats", "--prom-file",
+            out + ".prom", "--progress", "2", *extra]
+    with UtilSampler() as util:
+        rc, _o, err, took = run_verb(argv)
+    if rc != 0:
+        raise RuntimeError(f"stripes {what}: exit {rc}: {err[-3000:]}")
+    with open(out, "rb") as fh:
+        if fh.read() != full:
+            raise AssertionError(f"stripes {what}: merged JSONL differs")
+    if verdicts is not None:
+        with open(out + ".containers.jsonl", "rb") as fh:
+            if fh.read() != verdicts:
+                raise AssertionError(f"stripes {what}: merged container "
+                                     "verdicts differ")
+    lines = err.splitlines()
+    stats = json.loads(next(x for x in reversed(lines) if x.startswith("{")))
+    matched = sum(stats.get(k, 0) for k in (
+        "dice_matched", "reference_matched", "package_matched",
+        "prefiltered_copyright", "prefiltered_exact"))
+    errors = sum(stats.get(k, 0) for k in (
+        "read_errors", "featurize_errors", "skipped_oversized"))
+    if stats["total"] != matched + stats["unmatched"] + errors:
+        raise AssertionError(f"stripes {what}: stats do not reconcile: "
+                             f"{stats}")
+    with open(out + ".prom", encoding="utf-8") as fh:
+        prom = fh.read()
+    if check_exposition(prom):
+        raise AssertionError(f"stripes {what}: exposition: "
+                             f"{check_exposition(prom)[:3]}")
+    k1 = re.findall(r'^device_kernel_launches\{stripe="(stripe\d+)",kernel='
+                    r'"(?:best_match_fused|topk_fused)"\} (\S+)', prom, re.M)
+    per = {}
+    for stripe, c in k1:
+        per[stripe] = per.get(stripe, 0) + int(float(c))
+    n_stripes = len(re.findall(r'^batch_rows\{stripe="stripe\d+",kind='
+                               r'"total"\}', prom, re.M))
+    if len(per) != n_stripes or not all(per.values()):
+        raise AssertionError(f"stripes {what}: K1 launches by stripe {per} "
+                             f"over {n_stripes} stripes")
+    if any("; restart " in x for x in lines):
+        raise AssertionError(f"stripes {what}: a stripe restarted: "
+                             + " | ".join(x for x in lines if "restart" in x))
+    progress = [x for x in lines if x.startswith("stripes: progress: ")]
+    for x in progress:
+        if not re.fullmatch(r"stripes: progress: \d+/\d+ stripes done; "
+                            r"shards( \d+:\d+B(\(done\))?)+", x):
+            raise AssertionError(f"stripes {what}: progress line {x!r}")
+    done = next(x for x in lines if x.startswith("stripes: done: "))
+    rows = stats["total"]
+    got = {"rows_per_s": rows / took, "seconds": took,
+           "read_s": stats["stage_seconds"].get("read", 0.0),
+           "busy": util.mean, "stripes": n_stripes}
+    log(f"stripes {what}: {rows} rows in {took:.2f} s, "
+        f"{rows / took:.1f} rows/s over the command ({done[9:]}); summed "
+        f"read {got['read_s']:.4f} s, featurize "
+        f"{stats['stage_seconds'].get('featurize', 0.0):.4f} s; K1 launches "
+        f"by stripe {per}; {len(progress)} progress lines; "
+        f"{util.describe()}; merged output, stats and exposition checked")
+    return got
+
+
+def count_rows_expanded(manifest: str) -> int:
+    """A container manifest's expanded rows (metadata only)."""
+    from licensee_tpu_torch.ingest.sources import expanded_layout
+
+    with open(manifest, encoding="utf-8") as fh:
+        return expanded_layout(fh.read().split())["total"]
+
+
+def find_stripe(out: str, index: int) -> int | None:
+    """The pid of the live stripe child ``index`` writing for ``out``."""
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as fh:
+                cmd = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if (out.encode() in cmd and b"--stripe-index" in cmd and cmd[
+                cmd.index(b"--stripe-index") + 1] == str(index).encode()):
+            return int(name)
+    return None
+
+
+def kill_drill(root: str, manifest: str, full: bytes) -> None:
+    """`--stripes 2` as a child process whose stripe 0 is SIGKILLed when
+    its shard holds a fifth of its rows: the runner must count the
+    restart, and the merge must reach the full run's sha256."""
+    import hashlib
+    import signal
+
+    out = os.path.join(root, "stripes.killed.jsonl")
+    shard = f"{out}.shard-00000-of-00002"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    log_path = out + ".stderr"
+    with open(log_path, "wb") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "licensee_tpu_torch.cli.main",
+             "batch-detect", manifest, "--output", out, "--stripes", "2"],
+            stdout=subprocess.DEVNULL, stderr=err, cwd=repo,
+            env={**os.environ, "PYTHONPATH": repo})
+    killed = None
+    deadline = time.monotonic() + 300
+    while proc.poll() is None and time.monotonic() < deadline:
+        size = os.path.getsize(shard) if os.path.exists(shard) else 0
+        if killed is None and size > len(full) // 10:
+            killed = find_stripe(out, 0)
+            if killed is not None:
+                os.kill(killed, signal.SIGKILL)
+        time.sleep(0.05)
+    rc = proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    with open(log_path, encoding="utf-8", errors="replace") as fh:
+        err = fh.read()
+    if rc != 0 or killed is None:
+        raise AssertionError(f"kill drill: exit {rc}, killed {killed}: "
+                             f"{err[-3000:]}")
+    if "stripe 0: " not in err or "; restart 1/" not in err:
+        raise AssertionError(f"kill drill: the runner did not count the "
+                             f"restart: {err[-3000:]}")
+    with open(out, "rb") as fh:
+        data = fh.read()
+    if hashlib.sha256(data).digest() != hashlib.sha256(full).digest():
+        raise AssertionError("kill drill: the merged sha256 differs")
+    log(f"stripes kill drill: stripe 0 (pid {killed}) SIGKILLed mid-run, "
+        "its restart counted by the runner, resumed; merged sha256 "
+        f"{hashlib.sha256(data).hexdigest()} equals the unstriped run's")
+
+
+def start_selftests() -> dict:
+    """`batch-detect --selftest`, `--selftest-remote` and
+    `--selftest-autoscale` on the card, as three child processes at once
+    (`finish_selftests` waits for them)."""
+    return {flag: cli_process(["batch-detect", flag])
+            for flag in ("--selftest", "--selftest-remote",
+                         "--selftest-autoscale")}
+
+
+def finish_selftests(procs: dict, t0: float) -> None:
+    for flag, proc in procs.items():
+        _out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"batch-detect {flag}: exit "
+                                 f"{proc.returncode}: {err[-3000:]}")
+        oks = [x for x in err.splitlines() if ": OK" in x]
+        log(f"batch-detect {flag}: passed on the card ({len(oks)} OK "
+            f"lines: {oks[-1][:160] if oks else ''})")
+    log(f"selftests: done {time.perf_counter() - t0:.1f} s after their "
+        "start (beside the kill drill and the elastic and remote stripes)")
+
+
+def phase_scale(np, torch, seed: int, root: str, inputs: dict,
+                launches: dict) -> None:
+    """Phase 10 after K5 (`phase_k5`): `batch-detect` at scale on the
+    card (the module's docstring lists its runs)."""
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit")
+    log(f"phase 10 (scale): {card}; host nproc {os.cpu_count()}")
+    mesh_and_lanes(torch, root, inputs, launches)
+    serve_mesh(torch, inputs)
+    cont = inputs["containers"]
+    timing = {}
+    with blob_host(cont["packed"]) as (base, command):
+        remote = remote_containers(torch, root, cont, base, command,
+                                   launches)
+        big, full = inputs["big"], inputs["big_full"]
+        for n in ("1", "2", "4"):
+            timing[f"stripes {n}"] = striped(torch, f"vendored{n}", root,
+                                             big, n, full)
+        # the selftests' child processes run beside the untimed drills
+        # that follow: the kill drill, the elastic and remote stripes
+        t_self, selftest_procs = time.perf_counter(), start_selftests()
+        kill_drill(root, prefix_manifest(big, 25001),
+                   first_lines(full, 25001))
+        with open(os.path.join(root, "scale.vendored.default.jsonl"),
+                  "rb") as fh:
+            slice_full = fh.read()
+        timing["elastic"] = striped(
+            torch, "elastic", root, inputs["vendored"], "elastic",
+            slice_full, ["--autoscale-min", "1", "--autoscale-max", "2",
+                         "--autoscale-cooldown", "2"])
+        # the first 200 containers of the remote manifest (~850 rows),
+        # the stripes' span boundary inside an archive
+        with open(remote["manifest"], encoding="utf-8") as fh:
+            part = write_lines(root, "remote200.txt",
+                               fh.read().splitlines()[:200])
+        n_part = count_rows_expanded(part)
+        out = os.path.join(root, "remote200.jsonl")
+        data, _st, _s, _k = drive(torch, "remote containers, 200",
+                                  ["batch-detect", part, "--output", out],
+                                  n_part)
+        with open(out + ".containers.jsonl", "rb") as fh:
+            verdicts = fh.read()
+        timing["remote stripes 2"] = striped(
+            torch, "remote2", root, part, "2", data, verdicts=verdicts)
+        finish_selftests(selftest_procs, t_self)
+        republish_drill(root, remote, base, command)
+    log("stripes timing: " + card + "; " + "; ".join(
+        f"{k}: {v['rows_per_s']:.1f} rows/s over {v['seconds']:.2f} s, read "
+        f"{v['read_s']:.4f} s summed, busy "
+        + ("not measured" if v["busy"] is None else f"{v['busy']:.4f}")
+        for k, v in timing.items()))
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
 
 
 # -- phase 8: detect -----------------------------------------------------------
@@ -2046,13 +2735,13 @@ class ServeScale:
 
     mixed_repos: int = 480      # the auto session: ~2,000 crawl files
     vendored_files: int = 2000  # the license session
-    variants: int = 20000       # the 64-client runs at T=47
+    variants: int = 10000       # the 64-client runs at T=47
     variants_608: int = 5000    # and at T=608
     clients: int = 64
     window: int = 8             # requests each client keeps in flight
     single: int = 400           # the one-client runs
-    reload_requests: int = 6000
-    profiled: int = 5000
+    reload_requests: int = 3000
+    profiled: int = 2500
 
     @classmethod
     def tiny(cls) -> "ServeScale":
@@ -2845,7 +3534,12 @@ def main() -> int:
 
     device, sm_clocks_per_s = phase_device(torch)
     phase_build()
+    t0 = time.perf_counter()
     rows = phase_kernels(np, torch, args.seed, sm_clocks_per_s)
+    log(f"phase 3 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    rows += phase_k5(np, torch, args.seed, sm_clocks_per_s)
+    log(f"phase 10's K5 took {time.perf_counter() - t0:.1f} s")
     launches = phase_slice(np, torch, args.seed)
     launches.update(phase_serve(np, torch, args.seed)["launches"])
     for row in rows:

@@ -12,7 +12,13 @@
         [--attribution] [--method M] [--batch-size N] [--confidence N] \\
         [--no-dedupe] [--device cuda|cpu] [--workers N] \\
         [--featurize-procs N] [--coalesce-batches N] [--pipeline-depth N] \\
-        [--no-resume] [--stats]
+        [--no-resume] [--stats] [--stats-file PATH] [--prom-file PATH] \\
+        [--progress SECS] [--profile DIR] [--mesh DATA[,MODEL]|auto|none] \\
+        [--device-lanes K|auto] [--stripes N|auto|elastic] \\
+        [--chips-per-stripe K] [--autoscale-min N] [--autoscale-max N] \\
+        [--autoscale-cooldown SECS]
+    python -m licensee_tpu_torch.cli.main batch-detect \\
+        --selftest | --selftest-remote | --selftest-autoscale
     python -m licensee_tpu_torch.cli.main corpus-build \\
         [--corpus SRC] --output ART.npz | --inspect ART.npz
     python -m licensee_tpu_torch.cli.main serve [--socket PATH|HOST:PORT] \\
@@ -21,7 +27,8 @@
         [--cache-entries N] [--cache-bytes N] [--deadline-ms MS] \\
         [--buckets N,N,...] [--confidence N] [--stats] [--no-tracing] \\
         [--trace-sample RATE] [--trace-slow-ms MS] [--trace-log PATH] \\
-        [--device cuda|cpu] [--selftest | --selftest-reload]
+        [--mesh DATA[,MODEL]|auto] [--device cuda|cpu] \\
+        [--selftest | --selftest-reload]
 
 `detect` (the default command: a bare path runs it), `diff`,
 `license-path`, `version` and `help` are the reference's verbs
@@ -32,9 +39,10 @@ on the host over a directory, a file, a git repository or a GitHub
 URL; `diff --socket` sends the diff to a `serve` worker instead
 (`fleet/wire.py`), which renders it with difflib, not git.
 
-`batch-detect` classifies a manifest of loose files and local tar, zip
-and git containers (one entry per line: ``path``, ``archive.tar::member``,
-``archive.zip::*``, ``repo.git::HEAD``) and writes JSONL rows, and for
+`batch-detect` classifies a manifest of loose files and tar, zip and git
+containers, local or (archives) over http(s) (one entry per line:
+``path``, ``archive.tar::member``, ``archive.zip::*``, ``repo.git::HEAD``,
+``https://host/release.tar.gz::*``) and writes JSONL rows, and for
 containers ``OUTPUT.containers.jsonl``, byte-identical to the JAX package's
 `licensee-tpu batch-detect`, through the same pipeline: featurize worker
 threads (or processes), coalesced device chunks, an overlap pipeline of
@@ -48,8 +56,10 @@ writes a corpus artifact in the JAX package's format
 package's micro-batcher (`serve/scheduler.py`) and JSONL protocol
 (`serve/server.py`) over stdio or a Unix or TCP socket, scoring each
 flush with K1 on the card unless ``--device cpu`` is given.
-``--stripes``, ``--mesh``, ``--device-lanes``, ``--progress``, remote
-(http(s)) containers, which a manifest may not name, and the other
+``--stripes N`` scales `batch-detect` out over N worker processes, each
+one stripe of the manifest, and merges their shards
+(`parallel/stripes.py`); ``--mesh`` and ``--device-lanes`` spread one
+process's scoring over several devices (`parallel/mesh.py`).  The other
 verbs of `licensee_tpu/cli/main.py` (`stats`, `traces`, `slo`, `top`,
 `alerts`, `fleet`, ...) wait for later slices (ROADMAP A).
 """
@@ -355,11 +365,457 @@ def load_corpus(source: str):
     return corpus
 
 
+def _atomic_write(path: str, text: str) -> None:
+    """Write-then-replace, so a supervisor polling ``path`` never reads a
+    torn file (the --stats-file/--prom-file contract)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        f.write(text)
+    os.replace(tmp, path)
+
+
+class _PromHeartbeat:
+    """Periodic atomic ``--prom-file`` dumps while a batch run is in
+    flight, each stamped with a rising ``stripe_scrape_epoch`` gauge.
+    The elastic stripe runner scrapes them for the live lane gauges; the
+    epoch is its proof of freshness (a killed stripe's last dump stops
+    advancing and reads as stale).  The run's final dump
+    (`_dump_run_artifacts`) then overwrites it with the full exposition
+    the merge reads."""
+
+    def __init__(self, path: str, interval_s: float = 1.0):
+        import threading
+
+        from licensee_tpu_torch.obs import get_registry, render_prometheus
+
+        self.path = path
+        self.interval_s = float(interval_s)
+        self._epoch = 0
+        self._render = render_prometheus
+        self._registry = get_registry()
+        self._registry.gauge(
+            "stripe_scrape_epoch",
+            "Monotonic heartbeat counter stamped into every periodic "
+            "--prom-file dump; an autoscaler accepts the exposition "
+            "only while this advances",
+        ).set_fn(lambda: self._epoch)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._loop, name="prom-heartbeat", daemon=True
+        )
+
+    def _beat(self) -> None:
+        self._epoch += 1
+        try:
+            _atomic_write(self.path, self._render(self._registry))
+        except OSError:
+            pass  # a full disk must not kill the run; the merge retries
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.interval_s):
+            self._beat()
+
+    def start(self) -> "_PromHeartbeat":
+        self._beat()  # the first exposition lands before the first batch
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(timeout=5.0)
+
+
+def _check_output_dir(output: str) -> str | None:
+    """The one --output misconfiguration named precisely (shared by the
+    single-process and striped paths), or None."""
+    out_dir = os.path.dirname(os.path.abspath(output))
+    if os.path.isdir(out_dir):
+        return None
+    problem = (
+        "is not a directory" if os.path.exists(out_dir) else "does not exist"
+    )
+    return f"output directory {problem}: {out_dir}"
+
+
+def _parse_mesh(value: str | None, default):
+    """A --mesh value: None (flag absent: ``default``), ``none``,
+    ``auto`` or ``DATA[,MODEL]``; raises ValueError on a bad value."""
+    if not value:
+        return default
+    if value == "none":
+        return None
+    if value == "auto":
+        return "auto"
+    try:
+        parts = [int(p) for p in value.split(",")]
+        return (parts[0], parts[1] if len(parts) > 1 else 1)
+    except ValueError:
+        raise ValueError(
+            f"bad --mesh {value!r} (want DATA[,MODEL])"
+        ) from None
+
+
+def _run_striped(args) -> int:
+    """`batch-detect --stripes N|auto|elastic`: supervise N child
+    batch-detect workers, each one stripe of the manifest writing its own
+    resumable shard, and merge their shards, stats and expositions
+    (`parallel/stripes.py`).  This process scores nothing and never
+    opens a CUDA context; each child inherits ``--device``."""
+    from licensee_tpu_torch.parallel.stripes import (
+        StripeError,
+        StripeRunner,
+        parse_stripes_arg,
+    )
+
+    if os.environ.get("LICENSEE_TPU_COORDINATOR") or os.environ.get(
+        "LICENSEE_TPU_DISTRIBUTED"
+    ):
+        print(
+            "error: --stripes is the single-host co-located launcher; "
+            "it cannot run under the multi-host env contract "
+            "(LICENSEE_TPU_COORDINATOR / LICENSEE_TPU_DISTRIBUTED) — "
+            "launch one striped runner per host instead",
+            file=sys.stderr,
+        )
+        return 1
+    if args.stripe_index is not None or args.stripe_count is not None:
+        print(
+            "error: --stripes cannot be combined with the internal "
+            "--stripe-index/--stripe-count worker flags",
+            file=sys.stderr,
+        )
+        return 1
+    if not args.output:
+        print(
+            "error: --stripes needs --output (per-stripe JSONL shards "
+            "merge there)",
+            file=sys.stderr,
+        )
+        return 1
+    if args.profile:
+        print(
+            "error: --profile traces one process; run the worker "
+            "directly (--stripe-index/--stripe-count) to profile a "
+            "single stripe",
+            file=sys.stderr,
+        )
+        return 1
+    try:
+        n_stripes = parse_stripes_arg(args.stripes)
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    # --stripes elastic: start at the lower bound and let the runner's
+    # autoscaler move the stripe count against each stripe's measured
+    # featurize-lane occupancy (its --prom-file heartbeat); every scale
+    # event is a drain and a resume-safe respawn
+    elastic = None
+    if n_stripes == "elastic":
+        from licensee_tpu_torch.parallel.autoscale import AutoscaleConfig
+
+        try:
+            elastic = AutoscaleConfig(
+                min_units=args.autoscale_min,
+                max_units=args.autoscale_max,
+                cooldown_s=args.autoscale_cooldown,
+            )
+        except ValueError as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        n_stripes = elastic.min_units
+    dir_err = _check_output_dir(args.output)
+    if dir_err:
+        print(f"error: {dir_err}", file=sys.stderr)
+        return 1
+    if args.corpus not in ("vendored", "spdx") and not os.path.isdir(
+        args.corpus
+    ) and not os.path.isfile(args.corpus):
+        print(
+            f"error: cannot load corpus {args.corpus!r}: not a "
+            "directory or artifact file",
+            file=sys.stderr,
+        )
+        return 1
+    # the resume preflight over the merged output's sidecar: a complete
+    # merged output would otherwise answer before any worker runs, with
+    # rows of another configuration.  The probe compiles the corpus in
+    # this process, only where a resume target exists, on a host-only
+    # classifier (device=None: no CUDA context; the stripes own the card)
+    probe_layout = None
+    if not args.no_resume and os.path.exists(args.output) and (
+        os.path.exists(f"{args.output}.meta.json")
+    ):
+        from licensee_tpu_torch.ingest.sources import is_container_entry
+        from licensee_tpu_torch.kernels.batch import BatchClassifier
+        from licensee_tpu_torch.projects.batch_project import (
+            BatchProject,
+            ResumeConfigError,
+        )
+
+        # a container manifest's expansion fingerprint is part of the
+        # compared configuration, so the probe expands the same manifest
+        probe_paths: list[str] = []
+        with open(args.manifest, encoding="utf-8") as f:
+            if any(is_container_entry(line.strip()) for line in f):
+                with open(args.manifest, encoding="utf-8") as f2:
+                    probe_paths = [
+                        line.strip() for line in f2 if line.strip()
+                    ]
+        probe = None
+        try:
+            classifier = BatchClassifier(
+                corpus=load_corpus(args.corpus),
+                method=args.method,
+                pad_batch_to=args.batch_size,
+                mode=args.mode,
+                closest=args.closest,
+                device=None,
+            )
+            probe = BatchProject(
+                probe_paths,
+                classifier=classifier,
+                batch_size=args.batch_size,
+                threshold=args.confidence,
+                attribution=args.attribution,
+                process_index=0,
+                process_count=1,
+                corpus_source=args.corpus,
+            )
+            probe._check_resume_config(args.output, resume=True)
+            if probe.ingest is not None:
+                # the runner reuses the probe's layout, not a second scan
+                probe_layout = probe.ingest.layout()
+        except (ResumeConfigError, ValueError) as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 1
+        finally:
+            if probe is not None:
+                probe.close()
+
+    # everything row-shaping or speed-relevant forwards to the workers;
+    # --workers splits the host's cores over the stripes unless given
+    forward: list[str] = ["--batch-size", str(args.batch_size)]
+    workers = args.workers or max(1, (os.cpu_count() or 1) // n_stripes)
+    forward += ["--workers", str(workers)]
+    for flag, value, default in (
+        ("--corpus", args.corpus, "vendored"),
+        ("--method", args.method, "auto"),
+        ("--mode", args.mode, "license"),
+        ("--mesh", args.mesh, None),
+        ("--confidence", args.confidence, None),
+        ("--coalesce-batches", args.coalesce_batches, 32),
+        ("--pipeline-depth", args.pipeline_depth, 2),
+        ("--device", args.device, "cuda"),
+    ):
+        if value is not None and value != default:
+            forward += [flag, str(value)]
+    if args.device_lanes is not None:
+        forward += ["--device-lanes", str(args.device_lanes)]
+    elif (
+        args.chips_per_stripe is not None
+        and args.chips_per_stripe > 1
+        and args.mesh in (None, "auto", "none")
+    ):
+        # a --chips-per-stripe K worker sees K devices; its chunks
+        # round-robin over them unless an explicit --mesh shards them
+        forward += ["--device-lanes", "auto"]
+    if args.closest:
+        forward += ["--closest", str(args.closest)]
+    if args.attribution:
+        forward += ["--attribution"]
+    if args.no_dedupe:
+        forward += ["--no-dedupe"]
+    if args.featurize_procs:
+        forward += ["--featurize-procs", str(args.featurize_procs)]
+
+    def event(message: str) -> None:
+        print(f"stripes: {message}", file=sys.stderr, flush=True)
+
+    try:
+        runner = StripeRunner(
+            args.manifest,
+            args.output,
+            n_stripes,
+            forward_args=tuple(forward),
+            resume=not args.no_resume,
+            auto_clamp=args.stripes == "auto",
+            chips_per_stripe=args.chips_per_stripe,
+            progress_every=args.progress,
+            on_event=event,
+            container_layout=probe_layout,
+            elastic=elastic,
+        )
+    except (OSError, ValueError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+
+    import signal as signallib
+
+    previous = {}
+
+    def _stop(signum, _frame):
+        event(f"signal {signum}: draining stripes (resume-safe)")
+        runner.request_stop()
+
+    for sig in (signallib.SIGTERM, signallib.SIGINT):
+        try:
+            previous[sig] = signallib.signal(sig, _stop)
+        except ValueError:
+            pass  # not the main thread (tests drive this in-process)
+    try:
+        summary = runner.run()
+    except StripeError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        for sig, handler in previous.items():
+            try:
+                signallib.signal(sig, handler)
+            except ValueError:
+                pass
+    # --stats-file / --prom-file name the merged files here (each
+    # worker's per-shard dumps are the merge's inputs)
+    if args.stats_file:
+        if summary.get("stats") is not None:
+            _atomic_write(
+                args.stats_file, json.dumps(summary["stats"]) + "\n"
+            )
+        else:
+            event(
+                f"warning: no merged stats available; {args.stats_file} "
+                "not written"
+            )
+    if args.prom_file:
+        if summary.get("prom"):
+            if os.path.abspath(args.prom_file) != os.path.abspath(
+                summary["prom"]
+            ):
+                import shutil
+
+                tmp = f"{args.prom_file}.tmp"
+                shutil.copyfile(summary["prom"], tmp)
+                os.replace(tmp, args.prom_file)
+        else:
+            event(
+                f"warning: no merged exposition available; "
+                f"{args.prom_file} not written"
+            )
+    if args.stats and summary.get("stats") is not None:
+        print(json.dumps(summary["stats"]), file=sys.stderr)
+    if summary.get("autoscale"):
+        auto = summary["autoscale"]
+        event(
+            f"autoscale: {auto['initial_stripes']} -> "
+            f"{auto['final_stripes']} stripes over "
+            f"{auto['scale_events']} rescale(s)"
+        )
+    event(
+        f"done: {summary['rows_written']} rows in "
+        f"{summary.get('elapsed_s', 0.0)}s"
+        + (
+            f" ({summary['files_per_sec']} files/sec)"
+            if summary.get("files_per_sec")
+            else ""
+        )
+    )
+    return 0
+
+
+def _dump_run_artifacts(args, stats) -> None:
+    """--stats-file / --prom-file: the run's stats JSON and a Prometheus
+    exposition of the process registry (the pipeline's lanes, the stage
+    seconds and result counters of the run, the native featurizer's
+    profile), each replaced atomically; the stripe runner merges them."""
+    if args.stats_file:
+        _atomic_write(args.stats_file, json.dumps(stats.as_dict()) + "\n")
+    if args.prom_file:
+        from licensee_tpu_torch.obs import (
+            NativeProfileSource,
+            get_registry,
+            render_prometheus,
+        )
+
+        registry = get_registry()
+        NativeProfileSource(registry)
+        stage_g = registry.gauge(
+            "batch_stage_seconds",
+            "Per-stage seconds of the last batch run (thread-seconds "
+            "for read/featurize, wall for elapsed)",
+            labels=("stage",),
+        )
+        for stage, seconds in stats.stage_seconds.items():
+            stage_g.labels(stage=stage).set(seconds)
+        rows_g = registry.gauge(
+            "batch_rows",
+            "Result counters of the last batch run",
+            labels=("kind",),
+        )
+        for kind in (
+            "total", "dice_matched", "reference_matched",
+            "package_matched", "prefiltered_copyright",
+            "prefiltered_exact", "unmatched", "read_errors",
+            "featurize_errors", "dedupe_hits", "skipped_oversized",
+        ):
+            rows_g.labels(kind=kind).set(getattr(stats, kind))
+        # the port's own: the card kernels this process launched, so a
+        # striped run's merged exposition shows each stripe's kernels
+        from licensee_tpu_torch.kernels import dice_cuda
+
+        launch_g = registry.gauge(
+            "device_kernel_launches",
+            "Kernel launches on the card by this process, by kernel",
+            labels=("kernel",),
+        )
+        for kernel, n in dice_cuda.LAUNCHES.items():
+            launch_g.labels(kernel=kernel).set(n)
+        _atomic_write(args.prom_file, render_prometheus(registry))
+
+
+class _Profile:
+    """``--profile DIR``: a `torch.profiler` trace of the run (the host
+    and, on a card, its kernels), written as ``DIR/trace.json``, the
+    Chrome trace format."""
+
+    def __init__(self, out_dir: str, device: str):
+        import torch
+
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if device == "cuda" and torch.cuda.is_available():
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        self.out_dir = out_dir
+        self._prof = torch.profiler.profile(activities=activities)
+        self._prof.start()
+
+    def stop(self) -> None:
+        self._prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        path = os.path.join(self.out_dir, "trace.json")
+        self._prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}", file=sys.stderr)
+
+
 def cmd_batch_detect(args) -> int:
     """Classify a manifest: with --output through the pipelined, resumable
-    `BatchProject.run`; without it, the rows on stdout from one pass."""
+    `BatchProject.run`; without it, the rows on stdout from one pass.
+    --stripes N|auto|elastic scales out over N co-located worker
+    processes (`parallel/stripes.py`)."""
+    if args.selftest:
+        from licensee_tpu_torch.parallel.stripes import selftest
+
+        return selftest(device=args.device)
+    if args.selftest_autoscale:
+        from licensee_tpu_torch.parallel.stripes import selftest_autoscale
+
+        return selftest_autoscale()
+    if args.selftest_remote:
+        from licensee_tpu_torch.parallel.stripes import selftest_remote
+
+        return selftest_remote(device=args.device)
     if not args.manifest:
-        print("error: need a manifest (one path per line)", file=sys.stderr)
+        print(
+            "error: need a manifest (one path per line), or --selftest",
+            file=sys.stderr,
+        )
         return 1
     if not os.path.exists(args.manifest):
         print(
@@ -367,6 +823,74 @@ def cmd_batch_detect(args) -> int:
             file=sys.stderr,
         )
         return 1
+    if args.stripes is not None:
+        # container manifests stripe too, by their expanded rows
+        return _run_striped(args)
+    try:
+        mesh = _parse_mesh(args.mesh, "auto")
+    except ValueError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    # a multi-process world from the environment (LICENSEE_TPU_COORDINATOR,
+    # _NUM_PROCESSES, _PROCESS_ID): this process classifies its stripe
+    # of the manifest and writes its own shard
+    from licensee_tpu_torch.parallel.distributed import maybe_initialize
+
+    process_index, process_count = maybe_initialize()
+    if process_count > 1 and not args.output:
+        print(
+            "error: multi-host runs need --output (per-host JSONL shards)",
+            file=sys.stderr,
+        )
+        return 1
+    if process_count > 1:
+        from licensee_tpu_torch.ingest.sources import is_container_entry
+
+        with open(args.manifest, encoding="utf-8") as f:
+            if any(is_container_entry(line.strip()) for line in f):
+                # no merge step, so no merged output to derive the
+                # container verdicts from
+                print(
+                    "warning: container entries in a multi-host run "
+                    "write per-host blob shards only; the "
+                    ".containers.jsonl sidecar is derived from a MERGED "
+                    "output (the single-host --stripes runner does this "
+                    "automatically)",
+                    file=sys.stderr,
+                )
+    # the stripe worker's rank (the --stripes runner spawns workers with
+    # these): the multi-process striping without the bootstrap, since
+    # co-located stripes share no collective
+    if (args.stripe_index is None) != (args.stripe_count is None):
+        print(
+            "error: --stripe-index and --stripe-count must be given "
+            "together",
+            file=sys.stderr,
+        )
+        return 1
+    if args.stripe_index is not None:
+        if process_count > 1:
+            print(
+                "error: stripe-worker flags cannot be combined with the "
+                "multi-host env contract",
+                file=sys.stderr,
+            )
+            return 1
+        if not args.output:
+            print(
+                "error: stripe workers need --output (the shard path "
+                "derives from it)",
+                file=sys.stderr,
+            )
+            return 1
+        if not 0 <= args.stripe_index < args.stripe_count:
+            print(
+                f"error: --stripe-index {args.stripe_index} out of range "
+                f"for --stripe-count {args.stripe_count}",
+                file=sys.stderr,
+            )
+            return 1
+        process_index, process_count = args.stripe_index, args.stripe_count
     from licensee_tpu_torch.projects.batch_project import BatchProject
 
     try:
@@ -386,21 +910,36 @@ def cmd_batch_detect(args) -> int:
             closest=args.closest,
             attribution=args.attribution,
             device=args.device,
+            mesh=mesh,
+            process_index=process_index,
+            process_count=process_count,
+            progress_every=args.progress,
+            device_lanes=args.device_lanes,
         )
     except OSError as exc:
         print(f"error: cannot read manifest: {exc}", file=sys.stderr)
         return 1
     except (ValueError, RuntimeError) as exc:
-        # a bad option or corpus, a torn or remote container, or no CUDA
-        # device without --device cpu
+        # a bad option, corpus or mesh, a torn container or a remote git
+        # repository, or no CUDA device without --device cpu
         print(f"error: {exc}", file=sys.stderr)
         return 1
     from licensee_tpu_torch.projects.batch_project import ResumeConfigError
 
+    profiler = _Profile(args.profile, args.device) if args.profile else None
+    # the live --prom-file heartbeat, which the elastic stripe runner
+    # scrapes for the lanes; the final dump overwrites it
+    heartbeat = None
+    if args.prom_file and args.output:
+        heartbeat = _PromHeartbeat(args.prom_file).start()
     try:
         if args.output is None:
             stats = _print_rows(project)
         else:
+            dir_err = _check_output_dir(args.output)
+            if dir_err:
+                print(f"error: {dir_err}", file=sys.stderr)
+                return 1
             stats = project.run(args.output, resume=not args.no_resume)
     except OSError as exc:
         print(f"error: batch run I/O failure: {exc}", file=sys.stderr)
@@ -411,7 +950,12 @@ def cmd_batch_detect(args) -> int:
         print(f"error: {exc}", file=sys.stderr)
         return 1
     finally:
+        if heartbeat is not None:
+            heartbeat.stop()
         project.close()
+        if profiler is not None:
+            profiler.stop()
+    _dump_run_artifacts(args, stats)
     if args.stats:
         print(json.dumps(stats.as_dict()), file=sys.stderr)
     return 0
@@ -527,6 +1071,7 @@ def cmd_serve(args) -> int:
         return selftest_reload(device=args.device)
     try:
         corpus = load_corpus(args.corpus)
+        mesh = _parse_mesh(args.mesh, None)
     except ValueError as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 1
@@ -583,9 +1128,10 @@ def cmd_serve(args) -> int:
             flight=flight,
             corpus_source=args.corpus,
             device=args.device,
+            mesh=mesh,
         )
     except (ValueError, RuntimeError) as exc:
-        # a bad option, or no CUDA device without --device cpu
+        # a bad option or mesh, or no CUDA device without --device cpu
         print(f"error: {exc}", file=sys.stderr)
         return 1
     if flight is not None:
@@ -817,6 +1363,137 @@ def build_parser() -> argparse.ArgumentParser:
         "--stats", action="store_true",
         help="Print the run's counters as one JSON line on stderr",
     )
+    batch.add_argument(
+        "--mesh", default=None, metavar="DATA[,MODEL]",
+        help=(
+            "Device mesh for the scorer (K5): DATA devices split the blob "
+            "batch, MODEL devices split the corpus's packed lanes "
+            "(default: every visible card data-parallel; 'none' forces "
+            "one device; on the CPU a mesh repeats the CPU device)"
+        ),
+    )
+
+    def lanes_arg(value):
+        if value == "auto":
+            return value
+        return bounded(int, 1)(value)
+
+    lanes_arg.__name__ = "K|auto"
+    batch.add_argument(
+        "--device-lanes", type=lanes_arg, default=None, metavar="K|auto",
+        help=(
+            "Round-robin whole dispatch chunks over the first K visible "
+            "devices ('auto' = all), each lane with its own stream and "
+            "staging, so one featurize stage feeds K devices.  Excludes "
+            "an explicit --mesh (which splits ONE chunk over devices)"
+        ),
+    )
+    batch.add_argument(
+        "--stripes", default=None, metavar="N|auto|elastic",
+        help=(
+            "Scale out over N co-located worker processes, each "
+            "classifying a contiguous stripe of the manifest into its own "
+            "resumable shard under a supervisor (crash restart with "
+            "backoff resumes the stripe; SIGTERM drains), then merge the "
+            "shards, stats and metrics: the merged output is "
+            "byte-identical to a one-process run.  'auto' sizes from the "
+            "host's cores; 'elastic' starts at --autoscale-min and grows "
+            "or shrinks the count against each worker's measured "
+            "featurize-lane occupancy.  Needs --output"
+        ),
+    )
+    batch.add_argument(
+        "--autoscale-min", type=bounded(int, 1), default=1, metavar="N",
+        help="With --stripes elastic: lower capacity bound (default 1)",
+    )
+    batch.add_argument(
+        "--autoscale-max", type=bounded(int, 1), default=8, metavar="N",
+        help=(
+            "With --stripes elastic: upper capacity bound (default 8); "
+            "units beyond the host's useful stripe count become "
+            "per-stripe --featurize-procs"
+        ),
+    )
+    batch.add_argument(
+        "--autoscale-cooldown", type=bounded(float, 0), default=30.0,
+        metavar="SECS",
+        help=(
+            "With --stripes elastic: minimum seconds between scale "
+            "events (default 30)"
+        ),
+    )
+    batch.add_argument(
+        "--chips-per-stripe", type=bounded(int, 1), default=None,
+        metavar="K",
+        help=(
+            "With --stripes: give stripe i devices [i*K, (i+1)*K) through "
+            "LICENSEE_TPU_VISIBLE_CHIPS (CUDA_VISIBLE_DEVICES in the "
+            "child); default: the stripes share every device"
+        ),
+    )
+    # internal: the rank flags the stripe runner spawns workers with
+    batch.add_argument(
+        "--stripe-index", type=bounded(int, 0), default=None,
+        help=argparse.SUPPRESS,
+    )
+    batch.add_argument(
+        "--stripe-count", type=bounded(int, 1), default=None,
+        help=argparse.SUPPRESS,
+    )
+    batch.add_argument(
+        "--stats-file", default=None, metavar="PATH",
+        help=(
+            "Write the run's stats JSON to PATH (atomic replace), the "
+            "file twin of --stats; the stripe runner merges these"
+        ),
+    )
+    batch.add_argument(
+        "--prom-file", default=None, metavar="PATH",
+        help=(
+            "Write a Prometheus text exposition of the run (pipeline "
+            "lanes, stage seconds, result counters, native featurizer "
+            "profile) to PATH, refreshed every second during a run; the "
+            "stripe runner merges these stripe-labelled"
+        ),
+    )
+    batch.add_argument(
+        "--progress", type=bounded(float, 0), default=0, metavar="SECS",
+        help=(
+            "With --output: a JSON progress line (rows done, files/sec, "
+            "dedupe hits) on stderr at most every SECS seconds"
+        ),
+    )
+    batch.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="Write a torch.profiler trace of the run to DIR/trace.json",
+    )
+    batch.add_argument(
+        "--selftest", action="store_true",
+        help=(
+            "Run the 2-stripe smoke (real worker processes over a "
+            "synthetic corpus; the merged output must equal a 1-stripe "
+            "run byte for byte) on --device and exit 0/1"
+        ),
+    )
+    batch.add_argument(
+        "--selftest-autoscale", action="store_true",
+        help=(
+            "Run the elastic-stripes drill (stub workers under the real "
+            "drain/respawn/resume machinery: a saturated featurize lane "
+            "must scale up, an idle one back down, and the merged output "
+            "must stay byte-identical) and exit 0/1"
+        ),
+    )
+    batch.add_argument(
+        "--selftest-remote", action="store_true",
+        help=(
+            "Run the remote-ingest drill (a loopback HTTP host serves a "
+            "tar and a zip with one scripted 503-then-recover and one "
+            "mid-stream truncation; the remote scans and a 2-stripe "
+            "merge must equal the local disk's bytes) on --device and "
+            "exit 0/1"
+        ),
+    )
     batch.set_defaults(func=cmd_batch_detect)
 
     corpus_build = sub.add_parser(
@@ -998,6 +1675,14 @@ def build_parser() -> argparse.ArgumentParser:
             "live traffic, blue/green reload under it, verify the "
             "fingerprint flipped, the cache fenced, and corrupt/"
             "unloadable sources refused) and exit 0/1 — the CI smoke"
+        ),
+    )
+    serve.add_argument(
+        "--mesh", default=None, metavar="DATA[,MODEL]",
+        help=(
+            "Device mesh for the scorer ('auto' = all visible devices "
+            "data-parallel; default: single device; bucket shapes are "
+            "rounded up to the data axis)"
         ),
     )
     serve.add_argument(

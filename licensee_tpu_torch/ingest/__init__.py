@@ -4,9 +4,9 @@ repositories as blob sources, read without extracting to disk.
 The port's counterpart of `licensee_tpu/ingest/`.  Manifest entries
 address containers with a ``::`` separator (``archive.tar::LICENSE``,
 ``archive.tar::*``, ``repo.git::HEAD``); ``sources.py`` expands them and
-reads their members, ``verdict.py`` derives the container-level verdict
-rows.  Remote (http(s)) containers wait for a later slice (ROADMAP A):
-a manifest that names one is refused.
+reads their members (``remote.py`` over http(s), ``loopback.py`` an
+in-memory host for tests), ``verdict.py`` derives the container-level
+verdict rows.
 
 This ``__init__`` stays import-light: ``serve/featurize.py`` imports
 :class:`SkippedBlob` for the skip-not-truncate read contract.

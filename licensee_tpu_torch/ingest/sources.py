@@ -30,10 +30,19 @@ central directory or a git repository whose revision does not resolve
 raise :class:`IngestError` while the manifest expands, before any row
 is written.
 
-Remote containers (``http(s)://...tar.gz::*`` and the like) are
-recognised as in the JAX package and refused: their reader
-(``ingest/remote.py``) waits for a later slice (ROADMAP A).  An
-unrecognised URL shape stays a loose path, whose read fails in its row.
+Remote containers (``http(s)://...tar::*``, ``.tar.gz``, ``.zip``) are
+read over HTTP(S) by ``ingest/remote.py`` (ranged reads for tar and zip,
+one streaming pass for a compressed tar); a remote git repository
+(``.git``) is refused.  An unrecognised URL shape stays a loose path,
+whose read fails in its row.
+
+Stripes are denominated in expanded blob counts, not raw manifest
+entries: every stripe expands the full manifest (metadata only) and
+:meth:`ManifestExpansion.restrict` s itself to its span of the expanded
+rows, closing the containers its span never touches, so one large
+tarball splits across stripes.  :func:`expanded_layout` is the stripe
+runner's twin: one counting pass that returns the total, the container
+groups and the fingerprint, with every handle closed.
 
 Thread safety: tar members are read with ``os.pread`` (no shared file
 offset); the compressed-tar, zip and git readers take a lock per
@@ -55,14 +64,14 @@ SEP = "::"
 # archive per member, so they go to the sequential-window reader
 _COMPRESSED_TAR_SUFFIXES = (".tar.gz", ".tgz", ".tar.bz2", ".tar.xz", ".tbz2", ".txz")
 
-# the container kinds of http(s) URLs (remote.py in the JAX package)
+# the container kinds of http(s) URLs (`ingest/remote.py`)
 REMOTE_KINDS = ("rtar", "rctar", "rzip", "rgit")
 
 
 class IngestError(ValueError):
     """A container that cannot be opened or safely enumerated (a torn
     archive, a corrupt central directory, an unresolvable git revision,
-    a remote container)."""
+    a remote git repository)."""
 
 
 def split_entry(entry: str):
@@ -228,9 +237,9 @@ class _SeqTarContainer:
         self._pos = 0
         self.rescans = 0
         try:
-            self._evidence.append(f"ctar:{os.path.getsize(path)}")
+            self._evidence.append(self._head_evidence())
             ordinal = 0
-            with tarfile.open(path, mode="r:*") as tf:
+            with self._open_meta_tar() as tf:
                 for info in tf:
                     if not info.isreg():
                         continue
@@ -249,6 +258,24 @@ class _SeqTarContainer:
                 f"cannot read compressed tar {path!r}: {exc}"
             ) from exc
         self._closed = False
+
+    # the seams the remote reader overrides (`ingest/remote.py`): its
+    # head evidence carries the republish validators instead of the
+    # size, and both passes ride streaming GETs instead of local opens
+    def _head_evidence(self) -> str:
+        return f"ctar:{os.path.getsize(self.path)}"
+
+    def _open_meta_tar(self):
+        import tarfile
+
+        return tarfile.open(self.path, mode="r:*")
+
+    def _open_stream_tar(self):
+        import tarfile
+
+        # r|* decompresses strictly forward: members are consumed in
+        # stream order, the window discipline this reader keeps
+        return tarfile.open(self.path, mode="r|*")
 
     def members(self) -> list[str]:
         return list(self._order)
@@ -282,11 +309,7 @@ class _SeqTarContainer:
 
     def _next_reg(self):
         if self._tf is None:
-            import tarfile
-
-            # r|* decompresses strictly forward: members are consumed in
-            # stream order, the window discipline this reader keeps
-            self._tf = tarfile.open(self.path, mode="r|*")
+            self._tf = self._open_stream_tar()
             self._iter = iter(self._tf)
             self._pos = 0
         while True:
@@ -461,15 +484,12 @@ class _GitContainer:
 
 def open_container(container: str, selector: str):
     """Open one container; the selector picks a git container's
-    revision.  Raises IngestError for a remote container."""
+    revision.  A remote git repository raises IngestError."""
     kind = _container_kind(container)
     if kind in REMOTE_KINDS:
-        raise IngestError(
-            f"remote container {container!r} ({kind}): remote containers "
-            "(http(s):// archives and repositories) are not supported by "
-            "licensee_tpu_torch yet; fetch the archive and list its local "
-            "path, or run the manifest with licensee_tpu"
-        )
+        from licensee_tpu_torch.ingest import remote as _remote
+
+        return _remote.open_remote_container(kind, container)
     if kind == "tar":
         return _TarContainer(container)
     if kind == "ctar":
@@ -496,12 +516,19 @@ class ManifestExpansion:
     ``paths[i]`` is what row i prints; ``read_at(i)`` loads its bytes
     (None: a read_error row; a :class:`SkippedBlob`: a skip row).  Reads
     go by index, not by display path, so two containers holding the
-    same member name never cross."""
+    same member name never cross.
+
+    ``total`` is the full expanded count, the stripes' denominator, even
+    after :meth:`restrict` narrows the expansion to one stripe's span;
+    :meth:`fingerprint` too is the full expansion's, so every stripe's
+    sidecar, the merged output's and an unstriped run's agree."""
 
     def __init__(self, entries: list[str]):
-        # the raw entries: with the fingerprint, what a worker process
-        # needs to reopen the containers itself (descriptor)
+        # the raw entries: with the span and the fingerprint, what a
+        # worker process needs to reopen the containers itself
+        # (descriptor)
         self.entries = list(entries)
+        self.span: tuple[int, int] | None = None
         self.total = 0
         self.paths: list[str] = []
         # parallel to paths: the name the routing and dispatch tables
@@ -523,6 +550,10 @@ class ManifestExpansion:
         # resume: rows [0, _done_prefix) are written and never read
         self._done_prefix = 0
 
+    @property
+    def has_containers(self) -> bool:
+        return self._any_containers
+
     def read_at(self, index: int):
         ref = self._refs[index]
         if ref is None:
@@ -537,6 +568,46 @@ class ManifestExpansion:
         run expands to the same rows of the same bytes, so an archive
         rewritten between runs refuses the resume."""
         return self._fingerprint if self._any_containers else None
+
+    def restrict(self, lo: int, hi: int) -> "ManifestExpansion":
+        """Narrow to the expanded span ``[lo, hi)``, one stripe's view.
+        Rows outside it drop, container groups clip to span-local
+        indices, and containers none of whose members fall inside are
+        closed (a stripe holds no handle for blobs another stripe owns).
+        ``total`` and ``fingerprint()`` keep the full expansion's."""
+        if not 0 <= lo <= hi <= self.total:
+            raise ValueError(
+                f"span [{lo}, {hi}) out of range for {self.total} "
+                "expanded entries"
+            )
+        self.paths = self.paths[lo:hi]
+        self.filenames = self.filenames[lo:hi]
+        self._refs = self._refs[lo:hi]
+        clipped = []
+        for entry, start, count in self.spans:
+            s, e = max(start, lo), min(start + count, hi)
+            if e > s:
+                clipped.append((entry, s - lo, e - s))
+        self.spans = clipped
+        self.subsets = [
+            (label, kept)
+            for label, members in self.subsets
+            if (kept := [(i - lo, m) for i, m in members if lo <= i < hi])
+        ]
+        live = {id(ref[0]) for ref in self._refs if ref is not None}
+        keep = []
+        for c in self._containers:
+            if id(c) in live:
+                keep.append(c)
+            else:
+                try:
+                    c.close()
+                except OSError:
+                    pass
+        self._containers = keep
+        self.span = (lo, hi)
+        self._register_wants()
+        return self
 
     def _register_wants(self) -> None:
         """Tell the sequential-window containers which members this
@@ -558,13 +629,26 @@ class ManifestExpansion:
             self._done_prefix = done
             self._register_wants()
 
+    def layout(self) -> dict:
+        """The stripe runner's summary (`expanded_layout`): the total, the
+        container groups and the fingerprint.  Call it on an unrestricted
+        expansion: after `restrict` the groups are span-local."""
+        return {
+            "total": self.total,
+            "spans": list(self.spans),
+            "subsets": [(label, list(m)) for label, m in self.subsets],
+            "fingerprint": self.fingerprint(),
+        }
+
     def descriptor(self) -> dict:
         """A picklable recipe for a worker process (``featurize_procs``)
         to reopen the containers itself (`from_descriptor`): the raw
-        entries, the fingerprint (the worker refuses if the containers
-        changed since the parent's expansion) and the written prefix."""
+        entries, the span, the fingerprint (the worker refuses if the
+        containers changed since the parent's expansion) and the written
+        prefix."""
         return {
             "entries": list(self.entries),
+            "span": list(self.span) if self.span is not None else None,
             "fingerprint": self.fingerprint(),
             "done_prefix": self._done_prefix,
         }
@@ -581,6 +665,9 @@ class ManifestExpansion:
                     "the worker's expansion fingerprint does not match "
                     "the parent's"
                 )
+            span = desc.get("span")
+            if span is not None:
+                out.restrict(span[0], span[1])
             if desc.get("done_prefix"):
                 out.mark_done_prefix(desc["done_prefix"])
         except BaseException:
@@ -606,8 +693,12 @@ class ManifestExpansion:
         self._containers = []
 
 
-def expand_manifest(entries: list[str]) -> ManifestExpansion:
-    """Expand raw manifest entries into one work item per blob.
+def expand_manifest(
+    entries: list[str], span: tuple[int, int] | None = None
+) -> ManifestExpansion:
+    """Expand raw manifest entries into one work item per blob, restricted
+    to the expanded ``span`` where one is given (a stripe's view, see
+    :meth:`ManifestExpansion.restrict`).
 
     Deterministic given the manifest and the containers' contents: the
     property the resume invariant (line count == completed prefix)
@@ -618,7 +709,10 @@ def expand_manifest(entries: list[str]) -> ManifestExpansion:
         _expand_into(out, entries)
         out.total = len(out.paths)
         out._fingerprint = _full_fingerprint(out)
-        out._register_wants()
+        if span is not None:
+            out.restrict(span[0], span[1])
+        else:
+            out._register_wants()
     except BaseException:
         # a torn container midway must not leak the handles opened
         # before it
@@ -637,6 +731,19 @@ def _full_fingerprint(out: ManifestExpansion) -> str:
             h.update(line.encode("utf-8", "surrogatepass"))
             h.update(b"\0")
     return h.hexdigest()
+
+
+def expanded_layout(entries: list[str]) -> dict:
+    """The stripe runner's counting pass: ``total`` (the stripes'
+    denominator), the whole-container ``spans`` and listed-member
+    ``subsets`` in full expanded coordinates (the merge's container
+    groups) and the ``fingerprint``, with every container handle closed
+    before it returns.  Metadata only: no blob bytes are read."""
+    ex = expand_manifest(entries)
+    try:
+        return ex.layout()
+    finally:
+        ex.close()
 
 
 def _expand_into(out: ManifestExpansion, entries: list[str]) -> None:

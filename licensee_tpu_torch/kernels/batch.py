@@ -1,7 +1,7 @@
 """Batch classification: host pre-filters + the Dice kernels on the device.
 
-The port's counterpart of `licensee_tpu/kernels/batch.py` on one device.
-It mirrors the first-match-wins matcher chain of the reference
+The port's counterpart of `licensee_tpu/kernels/batch.py`.  It mirrors
+the first-match-wins matcher chain of the reference
 (`project_files/license_file.rb:67-69`: Copyright -> Exact -> Dice): the
 host sanitizes each blob, short-circuits it through the Copyright and
 Exact pre-filters, and featurizes the rest into packed bitsets; the
@@ -24,10 +24,14 @@ pipeline (`native/pipeline.py`, the GIL dropped), and redoes on the
 pure-Python pipeline each blob the native side cannot take (non-ASCII
 text, a PCRE2 resource limit, HTML).  The device half is asynchronous:
 `dispatch_chunks_async` stages each chunk in pinned host rows, enqueues
-it on the device's one dispatch stream and returns a `DeviceFuture`
-that a CUDA event resolves.
+it on the device's dispatch stream and returns a `DeviceFuture` that a
+CUDA event resolves.
 
-Several devices (lanes and meshes) wait for a later slice (ROADMAP A).
+Several devices serve one classifier in either of two ways, as in the
+JAX package: ``mesh`` splits every chunk over a (data, model) grid of
+devices (K5, `parallel/mesh.py`), and ``lanes`` round-robins whole
+chunks over K device lanes, each with its own stream and pinned
+staging, so one featurize stage feeds K devices.
 """
 
 from __future__ import annotations
@@ -347,6 +351,12 @@ class BatchClassifier:
     processes' (``--featurize-procs``): `prepare_batch` works in full,
     but it holds no device tensors, never touches CUDA, and
     `dispatch_chunks_async` raises.
+
+    ``mesh`` is a `parallel.mesh.DeviceMesh`, an ``(n_data, n_model)``
+    tuple, ``"auto"`` (every visible card on the data axis; one device
+    stays unsharded) or None; on the CPU a mesh repeats the CPU device.
+    ``lanes`` (int, ``"auto"`` or a list of devices) round-robins whole
+    chunks over that many devices instead; the two exclude each other.
     """
 
     def __init__(
@@ -357,6 +367,8 @@ class BatchClassifier:
         mode: str = "license",
         closest: int = 0,
         device="cuda",
+        mesh="auto",
+        lanes=None,
     ):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r}")
@@ -382,10 +394,19 @@ class BatchClassifier:
         self._dispatched_shapes: set = set()
         self._shape_prof: dict[int, dict] = {}
         self.tensors = self._scorer = self._staging = None
+        self.mesh = None
+        self.devices = None  # the device lanes, where more than one
+        self._lanes: list = []  # [(scorer, staging ring)], one per lane
+        self._rr = 0  # the lanes' round-robin cursor
         if mode == "package":
             # package manifests are matched by the filename-dispatched
             # lenient regexes alone (package_manager_file.rb): no corpus
-            # is compiled and no scorer built
+            # is compiled and no scorer built; an explicit mesh is a
+            # caller's error, not an option silently ignored
+            if mesh is not None and mesh != "auto":
+                raise ValueError(
+                    "package mode runs host-only; pass mesh=None"
+                )
             if self.closest:
                 raise ValueError(
                     "closest needs the Dice scorer; package mode never "
@@ -409,22 +430,145 @@ class BatchClassifier:
                 "closest is not supported with the pallas methods"
             )
         if self.device is not None:
-            # top-1 stays exact with or without closest: the top-k's
-            # column 0 is the first-max
-            k = (
-                min(self.closest + 1, self.corpus.n_templates)
-                if self.closest
-                else 0
-            )
-            self.tensors = corpus_tensors(self.corpus, self.device)
-            self._scorer = dice_cuda.make_best_match_fn(
-                self.tensors, self.method, k
-            )
-            self._staging = _StagingRing(self._scorer.host_rows, STAGING_DEPTH)
+            self._init_device(mesh, lanes)
         # Exact matcher pre-filter (matchers/exact.rb:6-13) against the
         # corpus's own template renderings, not the vendored pool
         self._exact_map = self.corpus.exact_sets
         self._init_native()
+
+    def _init_device(self, mesh, lanes) -> None:
+        """The device scorers: one lane on ``self.device``, K lanes, or a
+        mesh; each lane with its own dispatch stream and staging ring."""
+        # top-1 stays exact with or without closest: the top-k's
+        # column 0 is the first-max
+        k = (
+            min(self.closest + 1, self.corpus.n_templates)
+            if self.closest
+            else 0
+        )
+        if lanes is not None:
+            if mesh not in (None, "auto"):
+                raise ValueError(
+                    "lanes round-robins whole chunks per chip; pass "
+                    "mesh=None (or leave mesh='auto' to be overridden)"
+                )
+            if self.method.startswith("pallas"):
+                raise ValueError(
+                    "the pallas methods are single-device; lanes cannot "
+                    "round-robin them"
+                )
+            mesh = None  # a lanes classifier never shards one chunk
+            devices = self._resolve_lanes(lanes)
+            if len(devices) > 1:
+                self.devices = devices
+        else:
+            devices = [self.device]
+        self.mesh = self._resolve_mesh(
+            mesh, self.method, self.pad_batch_to, self.device
+        )
+        self.tensors = corpus_tensors(self.corpus, self.device)
+        if self.mesh is not None:
+            from licensee_tpu_torch.parallel.mesh import MeshScorer
+
+            scorers = [MeshScorer(self.tensors, self.mesh, self.method, k)]
+        else:
+            scorers = [
+                dice_cuda.BestMatchScorer(
+                    self.tensors if dev == self.device
+                    else corpus_tensors(self.corpus, dev),
+                    self.method, k, lane=lane,
+                )
+                for lane, dev in enumerate(devices)
+            ]
+        self._lanes = [
+            (sc, _StagingRing(functools.partial(sc.host_rows, lane=lane),
+                              STAGING_DEPTH))
+            for lane, sc in enumerate(scorers)
+        ]
+        self._scorer, self._staging = self._lanes[0]
+
+    def _resolve_lanes(self, lanes) -> list:
+        """The devices of ``lanes``: the first K visible devices of this
+        classifier's kind (``"auto"``: all), or an explicit device list,
+        which may repeat a device (two lanes, two streams, one card).
+        On the CPU K lanes repeat the CPU device."""
+        if isinstance(lanes, (list, tuple)):
+            devices = [torch.device(d) for d in lanes]
+            if not devices:
+                raise ValueError("lanes needs at least one device")
+            return devices
+        from licensee_tpu_torch.parallel.mesh import visible_devices
+
+        local = visible_devices(self.device.type)
+        if self.device.type == "cpu":
+            k = 1 if lanes == "auto" else int(lanes)
+            local = local * max(k, 1)
+        else:
+            k = len(local) if lanes == "auto" else int(lanes)
+        if k < 1:
+            raise ValueError(f"lanes must be >= 1, got {lanes!r}")
+        if k > len(local):
+            raise ValueError(
+                f"lanes={k} but only {len(local)} visible devices "
+                "(the chip-partition contract: set "
+                "LICENSEE_TPU_VISIBLE_CHIPS / --chips-per-stripe)"
+            )
+        return local[:k]
+
+    @staticmethod
+    def _resolve_mesh(mesh, method: str, pad_batch_to: int, device):
+        """Resolve ``mesh`` to a `DeviceMesh`, or None (one device).
+
+        The dispatch chunk of ``pad_batch_to`` rows is split over the
+        data axis, which must divide it (as in the JAX package, whose
+        chunks are padded); ``"auto"`` shrinks the data axis to the
+        largest visible device count that does."""
+        if mesh is None:
+            return None
+        from licensee_tpu_torch.parallel.mesh import (
+            DeviceMesh,
+            build_mesh,
+            visible_devices,
+        )
+
+        if isinstance(mesh, DeviceMesh):
+            resolved = mesh
+        elif mesh == "auto":
+            if method.startswith("pallas") or device.type == "cpu":
+                # the pallas methods stay on one device, as the JAX
+                # package's hand-scheduled kernels do; the CPU is one
+                return None
+            local = visible_devices("cuda")
+            n = len(local)
+            while n > 1 and pad_batch_to % n:
+                n -= 1
+            if n <= 1:
+                return None
+            resolved = build_mesh(n_data=n, n_model=1, devices=local)
+        else:
+            n_data, n_model = mesh
+            if n_data < 1 or n_model < 1:
+                raise ValueError(
+                    f"mesh axes must be positive, got ({n_data}, {n_model})"
+                )
+            # on the CPU a mesh repeats the one CPU device
+            devices = (
+                [device] * (n_data * n_model)
+                if device.type == "cpu" else None
+            )
+            resolved = build_mesh(n_data=n_data, n_model=n_model,
+                                  devices=devices)
+        if method.startswith("pallas"):
+            raise ValueError(
+                "the pallas methods are single-device; pass mesh=None"
+            )
+        n_data = resolved.shape["data"]
+        if pad_batch_to % n_data:
+            raise ValueError(
+                f"pad_batch_to={pad_batch_to} is not divisible by the "
+                f"data axis ({n_data})"
+            )
+        return resolved
 
     def _init_native(self) -> None:
         """Load the whole-pipeline native featurizer: sanitize ->
@@ -888,6 +1032,11 @@ class BatchClassifier:
             raise ValueError(f"pad_to must be >= 1, got {pad_to!r}")
         todo = prepared.todo
         B = int(pad_to) if pad_to is not None else self.pad_batch_to
+        if self.mesh is not None and B % self.mesh.shape["data"]:
+            raise ValueError(
+                f"pad_to={B} is not divisible by the mesh's data axis "
+                f"({self.mesh.shape['data']})"
+            )
         parts = []
         for start in range(0, len(todo), B):
             chunk = todo[start : start + B]
@@ -896,17 +1045,25 @@ class BatchClassifier:
                 slice(start, start + len(chunk)) if prepared.compact else chunk
             )
             t0 = time.perf_counter()
-            slot = self._staging.acquire(B)
+            # device lanes: whole chunks round-robin, each lane on its
+            # own stream with its own staging
+            scorer, ring = self._lanes[self._rr % len(self._lanes)]
+            self._rr += 1
+            slot = ring.acquire(B)
             n = slot.fill(
                 prepared.bits[rows],
                 prepared.n_words[rows],
                 prepared.lengths[rows],
                 prepared.cc_fp[rows],
             )
-            done = self._scorer.submit(slot, n)
+            done = scorer.submit(slot, n)
             self._note_dispatch(B, time.perf_counter() - t0)
             parts.append((chunk, slot, done))
-        return DeviceFuture(parts, self._staging.release if parts else None)
+        return DeviceFuture(parts, self._release_slot if parts else None)
+
+    def _release_slot(self, slot) -> None:
+        """Return a staging slot to its own lane's ring."""
+        self._lanes[slot.lane][1].release(slot)
 
     def dispatch_chunks(self, prepared: PreparedBatch):
         """Submit and await in one call: the resolved host-numpy outs.
@@ -946,8 +1103,10 @@ class BatchClassifier:
             out = dict(self._dispatch_prof)
             if self._scorer is not None:
                 # the scorer's chain of kernels (top-1, or the top-k route
-                # chosen by k)
+                # chosen by k; a mesh names its grid)
                 out["scorer"] = self._scorer.route
+                if len(self._lanes) > 1:
+                    out["lanes"] = len(self._lanes)
             out["shapes"] = sorted(self._dispatched_shapes)
             out["per_shape"] = {
                 b: {

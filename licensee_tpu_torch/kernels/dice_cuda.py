@@ -45,7 +45,10 @@ from licensee_tpu_torch.kernels.dice_ref import CorpusTensors
 # kernel name -> launches since the last reset; a wrapper adds one
 # exactly where it launches its kernel
 LAUNCHES = {"score_pairs_fused": 0, "best_match_fused": 0,
-            "topk_fused": 0, "overlap_pairs_mma": 0, "topk_exact": 0}
+            "topk_fused": 0, "overlap_pairs_mma": 0, "topk_exact": 0,
+            # K5 (`parallel/mesh.py`): one a sharded call on the card,
+            # whose shards count their own K1 or K2 launches
+            "make_sharded_scorer": 0}
 # the serve path launches from its scheduler thread and, during a corpus
 # reload, from the reload thread too: the counts and K1's tickets
 # (`_tickets`) are shared between them
@@ -576,12 +579,17 @@ K1_METHODS = ("popcount", "pallas")
 K2_METHODS = ("matmul", "pallas-mxu")
 
 
+def dispatch_stream(index: int, lane: int = 0) -> "torch.cuda.Stream":
+    """The stream a device lane of the batch path dispatches on (one per
+    device and lane): with several groups in flight, each chunk's copies
+    to the card, its launches (and K1's tickets, `_tickets`) and its
+    copy back queue in order behind the lane's chunks before it."""
+    # one cache key however the lane is passed
+    return _dispatch_stream(index, lane)
+
+
 @functools.cache
-def dispatch_stream(index: int) -> "torch.cuda.Stream":
-    """The one stream per device that the batch path dispatches on: with
-    several groups in flight, each chunk's copies to the card, its
-    launches (and K1's tickets, `_tickets`) and its copy back queue in
-    order behind the chunks before it."""
+def _dispatch_stream(index: int, lane: int) -> "torch.cuda.Stream":
     return torch.cuda.Stream(device=index)
 
 
@@ -595,15 +603,17 @@ class HostRows:
     on the dispatch stream; the memory must then not be refilled before
     the chunk's event completes."""
 
-    __slots__ = ("capacity", "k", "tensors", "bits", "n_words", "lengths",
-                 "cc_fp", "out")
+    __slots__ = ("capacity", "k", "lane", "tensors", "bits", "n_words",
+                 "lengths", "cc_fp", "out")
 
-    def __init__(self, capacity: int, n_lanes: int, pin: bool, k: int = 0):
+    def __init__(self, capacity: int, n_lanes: int, pin: bool, k: int = 0,
+                 lane: int = 0):
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, pin_memory=pin)
 
         self.capacity = capacity
         self.k = k
+        self.lane = lane  # the device lane whose staging ring owns it
         self.tensors = (
             zeros((capacity, n_lanes), torch.int32),
             zeros(capacity, torch.int32),
@@ -661,7 +671,8 @@ class BestMatchScorer:
     versions run at once and it returns None.  Calling the scorer on
     numpy rows is the synchronous form of the two."""
 
-    def __init__(self, ct: CorpusTensors, method: str, k: int = 0):
+    def __init__(self, ct: CorpusTensors, method: str, k: int = 0,
+                 lane: int = 0):
         self.device = ct.bits.device
         self.n_lanes = ct.bits.shape[1]
         self.k = int(k)
@@ -701,7 +712,7 @@ class BestMatchScorer:
             self._best = top_k
             self.route = f"{kernel} planes + topk_exact (k={self.k})"
         self.stream = (
-            dispatch_stream(self.device.index)
+            dispatch_stream(self.device.index, lane)
             if self.device.type == "cuda" else None
         )
         if self.stream is not None:
@@ -710,9 +721,9 @@ class BestMatchScorer:
             # dispatch stream waits for them before its first launch
             self.stream.wait_stream(torch.cuda.current_stream(self.device))
 
-    def host_rows(self, capacity: int) -> HostRows:
+    def host_rows(self, capacity: int, lane: int = 0) -> HostRows:
         return HostRows(capacity, self.n_lanes,
-                        pin=self.device.type == "cuda", k=self.k)
+                        pin=self.device.type == "cuda", k=self.k, lane=lane)
 
     def submit(self, rows: HostRows, n: int):
         """Score ``rows``' first ``n`` rows into ``rows.out``; returns the

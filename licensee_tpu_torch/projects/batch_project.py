@@ -1,9 +1,9 @@
 """BatchProject: classify a manifest of blobs into JSONL rows.
 
-The port's counterpart of `licensee_tpu/projects/batch_project.py`, one
-device, every mode (license, readme, package, auto), ``closest`` and
-``attribution``: manifest -> read + featurize worker threads (or
-spawned worker processes, ``featurize_procs``) -> coalescing of the
+The port's counterpart of `licensee_tpu/projects/batch_project.py`, every
+mode (license, readme, package, auto), ``closest`` and ``attribution``:
+manifest -> read + featurize worker threads (or spawned worker
+processes, ``featurize_procs``) -> coalescing of the
 device rows of consecutive batches into full device chunks -> up to
 ``pipeline_depth`` groups in flight on the card (`dispatch_chunks_async`,
 `kernels/batch.py`) -> finish -> a writer thread that writes the rows in
@@ -28,9 +28,17 @@ workers, and the expansion's fingerprint joins the sidecar, so a
 rewritten archive refuses a resume.  After the run, the container-level
 verdicts go to ``<output>.containers.jsonl`` (`ingest/verdict.py`).
 
-What waits for later slices (ROADMAP A): stripes and multi-host runs,
-several devices (lanes), remote containers, progress lines and the run's
-metrics through the obs registry (`--stats-file`, `--prom-file`).
+Remote (http(s)) containers read through `ingest/remote.py`.  A project
+may be one stripe of a manifest (``process_index``/``process_count``:
+the stripe runner's workers, `parallel/stripes.py`, or a multi-process
+world, `parallel/distributed.py`): it classifies its contiguous span,
+in expanded rows for a container manifest, and writes its own shard,
+whose container verdicts the runner derives after the merge.  Several
+devices serve one project as a mesh (``mesh``, K5 in
+`parallel/mesh.py`) or as device lanes (``device_lanes``, whole chunks
+round-robin over the devices).  ``progress_every`` prints a JSON
+progress line on stderr, and the run's lanes register on the process's
+obs registry, which ``--prom-file`` renders.
 """
 
 from __future__ import annotations
@@ -39,6 +47,7 @@ import hashlib
 import json
 import os
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -110,6 +119,52 @@ def _read_from(exp, start: int):
     return lambda _path, i: read_at(start + i)
 
 
+def _stripe_rank(process_index, process_count) -> tuple[int, int]:
+    """``(process_index, process_count)``: the arguments where given (both
+    or neither), else the multi-process world of the environment
+    (`parallel/distributed.maybe_initialize`, ``(0, 1)`` without one)."""
+    if (process_index is None) != (process_count is None):
+        raise ValueError(
+            "process_index and process_count must be given together"
+        )
+    if process_count is None:
+        from licensee_tpu_torch.parallel.distributed import maybe_initialize
+
+        process_index, process_count = maybe_initialize()
+    return int(process_index), int(process_count)
+
+
+class _Progress:
+    """``--progress SECS``: at most every ``every`` seconds of a run, one
+    JSON line on stderr (rows written, of how many, files/sec, dedupe
+    hits), from the writer thread after a batch is written."""
+
+    def __init__(self, every: float, t_run: float, of: int, stats):
+        self.every = every
+        self.t_run = self.t_last = t_run
+        self.of = of
+        self.stats = stats
+
+    def tick(self) -> None:
+        if not self.every:
+            return
+        now = time.perf_counter()
+        if now - self.t_last < self.every:
+            return
+        self.t_last = now
+        stats = self.stats
+        print(
+            json.dumps({
+                "progress": stats.total,
+                "of": self.of,
+                "files_per_sec": round(stats.total / (now - self.t_run), 1),
+                "dedupe_hits": stats.dedupe_hits,
+            }),
+            file=sys.stderr,
+            flush=True,
+        )
+
+
 @dataclass
 class BatchStats:
     total: int = 0
@@ -179,30 +234,87 @@ class BatchProject:
         closest: int = 0,
         attribution: bool = False,
         device="cuda",
+        mesh="auto",
+        process_index: int | None = None,
+        process_count: int | None = None,
+        already_striped: bool = False,
+        progress_every: float = 0,
+        device_lanes: int | str | None = None,
+        classifier=None,
     ):
         from licensee_tpu_torch.ingest.sources import (
             expand_manifest,
             is_container_entry,
         )
 
+        # one stripe of the manifest: explicit arguments win, else the
+        # multi-process world, else the whole manifest
+        self.process_index, self.process_count = _stripe_rank(
+            process_index, process_count
+        )
         paths = list(manifest_paths)
         # container entries expand into one work item per member blob
         # (metadata only: member tables, central directories, root
-        # trees); a torn container raises here, before any row exists
+        # trees); a torn container raises here, before any row exists.
+        # Stripes of a container manifest are spans of the expanded
+        # rows: every stripe expands the full manifest and keeps its
+        # span, so one large tarball splits across stripes.
         self.ingest = None
-        if any(is_container_entry(p) for p in paths):
+        has_containers = any(is_container_entry(p) for p in paths)
+        if self.process_count > 1 and not already_striped and (
+            not has_containers
+        ):
+            from licensee_tpu_torch.parallel.distributed import (
+                manifest_stripe,
+            )
+
+            lo, hi = manifest_stripe(
+                len(paths), self.process_index, self.process_count
+            )
+            paths = paths[lo:hi]
+        if has_containers:
+            if already_striped and self.process_count > 1:
+                # the caller sliced the raw entries; expanded spans need
+                # the full manifest on every stripe
+                raise ValueError(
+                    "container manifests stripe by expanded blob "
+                    "count; pass the full manifest to every rank "
+                    "(already_striped does not apply)"
+                )
             self.ingest = expand_manifest(paths)
+            if self.process_count > 1:
+                from licensee_tpu_torch.parallel.distributed import (
+                    manifest_stripe,
+                )
+
+                self.ingest.restrict(*manifest_stripe(
+                    self.ingest.total,
+                    self.process_index,
+                    self.process_count,
+                ))
             paths = self.ingest.paths
         self.paths = paths
         try:
-            self.classifier = BatchClassifier(
+            # a caller's classifier (its pad_batch_to must be batch_size)
+            # shares its scorer across projects
+            self.classifier = classifier or BatchClassifier(
                 corpus=corpus,
                 method=method,
                 pad_batch_to=batch_size,
                 mode=mode,
                 closest=closest,
                 device=device,
+                mesh=mesh,
+                # --device-lanes: whole chunks round-robin over this
+                # stripe's devices; overrides mesh sharding when set
+                lanes=device_lanes,
             )
+            if self.classifier.pad_batch_to != batch_size:
+                raise ValueError(
+                    f"classifier pad_batch_to="
+                    f"{self.classifier.pad_batch_to} != "
+                    f"batch_size={batch_size}"
+                )
         except BaseException:
             self.close()
             raise
@@ -252,11 +364,59 @@ class BatchProject:
         # --attribution: the copyright line of each matched row, a host
         # regex after the match (with dedupe, once per unique content)
         self.attribution = attribution
+        # --progress SECS: a JSON progress line on stderr at most every
+        # SECS seconds of run(); 0 disables
+        self.progress_every = float(progress_every or 0)
+        if not (self.progress_every >= 0):  # rejects negatives AND NaN
+            raise ValueError(
+                f"progress_every must be >= 0, got {progress_every!r}"
+            )
         self.stats = BatchStats()
 
     @classmethod
     def from_manifest_file(cls, manifest_file: str, **kwargs) -> "BatchProject":
-        """Build a project from a one-path-per-line manifest."""
+        """Build a project from a one-path-per-line manifest.
+
+        One stripe of several reads only its own span of a loose
+        manifest (one pass counts the entries, the second keeps the
+        span), so N stripes hold ~1/N of the paths each; a container
+        manifest is read whole, since its spans are in expanded rows."""
+        process_index, process_count = _stripe_rank(
+            kwargs.get("process_index"), kwargs.get("process_count")
+        )
+        kwargs["process_index"] = process_index
+        kwargs["process_count"] = process_count
+        if process_count > 1:
+            from licensee_tpu_torch.ingest.sources import is_container_entry
+            from licensee_tpu_torch.parallel.distributed import (
+                count_manifest_entries,
+                manifest_stripe,
+            )
+
+            with open(manifest_file, encoding="utf-8") as f:
+                has_containers = any(
+                    is_container_entry(line.strip()) for line in f
+                )
+            if not has_containers:
+                # the runner's own counter: the runner and the stripe
+                # agree on what an entry is, or the merge's row count
+                # check fails
+                n = count_manifest_entries(manifest_file)
+                lo, hi = manifest_stripe(n, process_index, process_count)
+                paths = []
+                k = 0
+                with open(manifest_file, encoding="utf-8") as f:
+                    for line in f:
+                        line = line.strip()
+                        if not line:
+                            continue
+                        if k >= hi:
+                            break
+                        if k >= lo:
+                            paths.append(line)
+                        k += 1
+                kwargs["already_striped"] = True
+                return cls(paths, **kwargs)
         with open(manifest_file, encoding="utf-8") as f:
             paths = [line.strip() for line in f if line.strip()]
         return cls(paths, **kwargs)
@@ -398,6 +558,14 @@ class BatchProject:
         return config
 
     def run(self, output: str, resume: bool = True) -> BatchStats:
+        if self.process_count > 1:
+            from licensee_tpu_torch.parallel.distributed import (
+                shard_output_path,
+            )
+
+            output = shard_output_path(
+                output, self.process_index, self.process_count
+            )
         run_config = self._check_resume_config(output, resume)
         done = 0
         if resume and os.path.exists(output):
@@ -411,8 +579,14 @@ class BatchProject:
         starts = deque(range(done, len(self.paths), self.batch_size))
         t_run = time.perf_counter()
         # featurize (produce workers), device (submit -> await) and
-        # writer occupancy, and the in-flight chunks
-        lanes = PipelineLanes()
+        # writer occupancy, and the in-flight chunks, registered on the
+        # process's registry so --prom-file carries this run's lanes
+        from licensee_tpu_torch.obs import get_registry
+
+        lanes = PipelineLanes().register(get_registry())
+        progress = _Progress(
+            self.progress_every, t_run, len(self.paths) - done, self.stats
+        )
         use_procs = self.featurize_procs > 0
         if use_procs:
             import multiprocessing
@@ -531,6 +705,7 @@ class BatchProject:
                         t1 = time.perf_counter()
                         self._write_batch(batch, out)
                         self.stats.add_stage("write", time.perf_counter() - t1)
+                        progress.tick()
                     except BaseException as exc:  # noqa: BLE001 — raised below
                         writer_err.append(exc)
                     finally:
@@ -622,12 +797,16 @@ class BatchProject:
                 raise writer_err[0]
         self.stats.pipeline = lanes.occupancy()
         self.stats.dispatch = self.classifier.dispatch_stats()
-        if self.ingest is not None and (
-            self.ingest.spans or self.ingest.subsets
+        if (
+            self.ingest is not None
+            and self.process_count == 1
+            and (self.ingest.spans or self.ingest.subsets)
         ):
             # the container-level verdicts, derived from the finished
             # per-blob output alone and replaced atomically, so a resumed
-            # run regenerates the same rows
+            # run regenerates the same rows.  A stripe writes none: a
+            # container may span shards, so the stripe runner derives
+            # the one file from the merged output
             from licensee_tpu_torch.ingest.verdict import (
                 write_container_verdicts,
             )

@@ -85,6 +85,8 @@ def build_classifier_like(template, source: str, method: str | None = None):
             mode=template.mode,
             closest=template.closest,
             device=template.device,
+            mesh=getattr(template, "mesh", None),
+            lanes=getattr(template, "devices", None),
         )
     except Exception as exc:  # noqa: BLE001 — compile containment: refuse, keep serving
         raise ReloadRejectedError(

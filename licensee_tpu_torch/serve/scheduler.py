@@ -156,8 +156,10 @@ class MicroBatcher:
 
     ``classifier`` defaults to a fresh BatchClassifier on ``device``
     (the card unless the caller asks for the CPU; with no card, building
-    one raises); pass one to share a warmed-up scorer.  ``mesh`` takes
-    only None: several devices wait for a later slice.  ``buckets`` is
+    one raises); pass one to share a warmed-up scorer.  ``mesh`` (None,
+    ``"auto"``, ``(n_data, n_model)`` or a `parallel.mesh.DeviceMesh`)
+    splits each flush over several devices (K5); the buckets then round
+    up to the data axis.  ``buckets`` is
     the ascending tuple of chunk capacities; by default a x4 geometric
     ladder up to ``max_batch`` (each bucket's staging is set up once,
     the ladder keeps the slot's spare rows under 4x for any batch
@@ -192,10 +194,6 @@ class MicroBatcher:
         corpus_source: str | None = None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise ValueError(
-                "mesh is not supported: the port serves on one device"
-            )
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch!r}")
         if not (max_delay_ms >= 0):  # rejects negatives AND NaN
@@ -215,6 +213,7 @@ class MicroBatcher:
                 mode=mode,
                 pad_batch_to=max_batch,
                 device=device,
+                mesh=mesh,
             )
         # the active corpus epoch: (classifier, fingerprint), swapped
         # ATOMICALLY (one attribute assignment under the lock) by
@@ -484,6 +483,12 @@ class MicroBatcher:
         if out[-1] < self.max_batch:
             # a full flush must fit the largest bucket
             out.append(self.max_batch)
+        mesh = getattr(self.classifier, "mesh", None)
+        if mesh is not None:
+            # a dispatch's chunk capacity must divide across the data
+            # axis (max_batch included)
+            n_data = mesh.shape["data"]
+            out = sorted({-(-b // n_data) * n_data for b in out})
         return tuple(out)
 
     def bucket_for(self, n: int) -> int:

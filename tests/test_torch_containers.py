@@ -9,9 +9,10 @@ the JSONL rows, ``OUT.containers.jsonl`` and the ``.meta.json`` sidecar
 byte-identical to the JAX package's CLI, in the license mode and in
 ``--mode auto --closest 3 --attribution`` (members route by their own
 basename), with worker processes, and with each package resuming the
-other's partial output.  A torn archive refuses the manifest in both
-packages; a remote container refuses it in the port, whose reader waits
-for a later slice.  Exact equality everywhere."""
+other's partial output.  A torn archive and a remote git repository
+refuse the manifest in both packages; a remote archive over the
+loopback host gives the same bytes in both.  Exact equality
+everywhere."""
 
 import io
 import json
@@ -268,25 +269,53 @@ def test_torn_archive_refuses_the_manifest(tmp_path, capsys, shape):
 
 
 @pytest.mark.parametrize("url", [
-    "https://example.invalid/pkg-1.0.tar.gz",
-    "http://example.invalid/pkg.tar",
-    "https://example.invalid/pkg.whl.zip?x=1",
-    "https://example.invalid/repo.git",
+    "pkg-1.0.tar.gz",
+    "pkg.tar",
+    "pkg.whl.zip?x=1",
+    "repo.git",
 ])
 def test_remote_container_refuses_the_manifest(tmp_path, capsys, url):
-    """The port names the remote container and exits non-zero before it
-    writes a row: never a read_error row where the JAX package would
-    fetch the archive."""
+    """A remote container, served from the loopback host: an archive
+    (tar, compressed tar, zip; a query string is the URL's own) gives
+    the JAX CLI's JSONL, container verdicts and sidecar byte for byte;
+    a remote git repository refuses the manifest in both packages with
+    the same message, before a row is written."""
+    from licensee_tpu_torch.ingest.loopback import LoopbackBlobHost
+
+    files = {"LICENSE": fixture("mit/LICENSE.txt"),
+             "COPYING": fixture("bsd-2-author/LICENSE")}
+    name = url.split("?", 1)[0]
+    if name.endswith(".tar.gz"):
+        blob = open(make_tar(tmp_path / "a.tgz", files, "w:gz"), "rb").read()
+    elif name.endswith(".tar"):
+        blob = open(make_tar(tmp_path / "a.tar", files), "rb").read()
+    elif name.endswith(".zip"):
+        blob = open(make_zip(tmp_path / "a.zip", files), "rb").read()
+    else:
+        blob = b"not a repository"
     loose = tmp_path / "LICENSE"
     loose.write_bytes(fixture("mit/LICENSE.txt"))
-    path = tmp_path / "m.txt"
-    path.write_text(f"{loose}\n{url}::*\n")
-    out = tmp_path / "out.jsonl"
-    assert run(port_main, str(path), out) == 1
-    err = capsys.readouterr().err
-    assert "remote container" in err and url in err
-    assert not out.exists()
-    assert sources.is_container_entry(f"{url}::*")
+    with LoopbackBlobHost({name: blob}) as host:
+        full = host.url(url)
+        entry = full + "::*"
+        assert sources.is_container_entry(entry)
+        path = tmp_path / "m.txt"
+        path.write_text(f"{loose}\n{entry}\n")
+        got = {}
+        for main, who in ((jax_main, "jax"), (port_main, "port")):
+            out = tmp_path / f"{who}.jsonl"
+            capsys.readouterr()
+            rc = run(main, str(path), out)
+            got[who] = (rc, capsys.readouterr().err,
+                        outputs(out) if out.exists() else None)
+    assert got["port"] == got["jax"]
+    if name.endswith(".git"):
+        rc, err, out = got["port"]
+        assert rc == 1 and out is None
+        assert "git-over-HTTP container" in err and full in err
+    else:
+        assert got["port"][0] == 0
+        assert len(got["port"][2][1].splitlines()) == 1  # one container row
 
 
 def test_entry_grammar_matches_jax(tmp_path):

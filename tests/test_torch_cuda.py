@@ -759,3 +759,135 @@ def test_topk_exact_both_designs_match_plain(card, T, k):
     for a, b in zip(got, dice_cuda.topk_exact_plain(num, den, k)):
         assert torch.equal(a, b)
 
+
+
+# -- K5, device lanes and stripes on the card --
+
+
+def k5_corpus(card, T):
+    """The vendored corpus at T=47; a seeded random one of W=132 lanes at
+    T=608 (the model axis pads its lane slices to whole stages)."""
+    if T == 47:
+        return convert.corpus_tensors(default_corpus(), card)
+    rng = np.random.default_rng(608)
+    W = 132
+    bits = (rng.integers(0, 2**32, (T, W), dtype=np.uint32)
+            & rng.integers(0, 2**32, (T, W), dtype=np.uint32))
+    cols = {
+        "n_wf": rng.integers(200, 2000, T), "n_fieldset": rng.integers(0, 6, T),
+        "field_count": rng.integers(0, 8, T), "alt_count": rng.integers(0, 4, T),
+        "length": rng.integers(1000, 40000, T),
+    }
+    return dice_ref.CorpusTensors(
+        bits=torch.from_numpy(bits.view(np.int32)).to(card),
+        **{n: torch.from_numpy(v.astype(np.int32)).to(card)
+           for n, v in cols.items()},
+        cc_flag=torch.from_numpy(rng.random(T) < 0.1).to(card),
+        valid=torch.ones(T, dtype=torch.bool, device=card),
+    )
+
+
+def k5_features(card, ct, B, seed):
+    rng = np.random.default_rng(seed)
+    bits = ct.bits.cpu().numpy()
+    T, W = bits.shape
+    fb = rng.integers(0, 2**32, (B, W), dtype=np.uint32).view(np.int32)
+    src = rng.integers(0, T, B)
+    fb[::2] = bits[src[::2]]
+    n_words = rng.integers(50, 3000, B).astype(np.int32)
+    n_words[::2] = ct.n_wf.cpu().numpy()[src[::2]]
+    return (torch.from_numpy(fb).to(card),
+            torch.from_numpy(n_words).to(card),
+            torch.from_numpy(rng.integers(100, 60000, B).astype(np.int32)
+                             ).to(card),
+            torch.from_numpy(rng.random(B) < 0.3).to(card))
+
+
+@pytest.mark.parametrize("T", [47, 608])
+@pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (2, 2)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k5_mesh_on_the_card_matches_plain(card, shape, T):
+    """`make_sharded_scorer` over ``[cuda:0] * n`` against the plain
+    scorer, top-1 and top-3, with one K1 launch per data shard (one
+    model shard) or one K2 launch per (data, model) block."""
+    from licensee_tpu_torch.parallel.mesh import build_mesh, make_sharded_scorer
+
+    ct = k5_corpus(card, T)
+    feats = k5_features(card, ct, 4096, T + shape[0] + shape[1])
+    num, den = dice_ref.score_pairs(ct, *feats)
+    want1 = dice_ref.argmax_exact(num, den)
+    want3 = dice_ref.topk_candidates(num, den, 3)
+    m = build_mesh(*shape, devices=[card] * (shape[0] * shape[1]))
+    D, M = shape
+    for topk, want, kernel in ((0, want1, "best_match_fused"),
+                               (3, (*(w[:, 0] for w in want3), *want3),
+                                "topk_fused")):
+        fn = make_sharded_scorer(ct, m, "popcount", topk)
+        dice_cuda.reset_launches()
+        got = fn(*feats)
+        torch.cuda.synchronize()
+        launched = {k: v for k, v in dice_cuda.LAUNCHES.items() if v}
+        assert launched.pop("make_sharded_scorer") == 1
+        if M == 1:
+            assert launched == {kernel: D}
+        else:
+            assert launched.pop("overlap_pairs_mma") == D * M
+            assert launched == ({"topk_exact": D} if topk else {})
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B", [1, 4097])
+def test_k5_uneven_last_shard_on_the_card(card, B):
+    from licensee_tpu_torch.parallel.mesh import build_mesh, make_sharded_scorer
+
+    ct = k5_corpus(card, 47)
+    feats = k5_features(card, ct, B, B)
+    want = dice_ref.argmax_exact(*dice_ref.score_pairs(ct, *feats))
+    got = make_sharded_scorer(ct, build_mesh(2, 1, devices=[card] * 2))(
+        *feats)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_two_device_lanes_on_one_card(card):
+    """Two lanes on cuda:0: two dispatch streams, two staging rings,
+    chunks round-robin; the rows equal the CPU classifier's."""
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+
+    contents = serve_texts(200)
+    lanes = BatchClassifier(pad_batch_to=16, lanes=[card, card])
+    assert len(lanes._lanes) == 2
+    streams = {sc.stream for sc, _ring in lanes._lanes}
+    assert len(streams) == 2
+    host = BatchClassifier(pad_batch_to=16, device="cpu")
+    got = lanes.classify_blobs(contents)
+    want = host.classify_blobs(contents)
+    assert [g.as_dict() for g in got] == [w.as_dict() for w in want]
+    assert lanes._rr > 1
+
+
+def test_stripe_child_without_a_card_exits_nonzero(card, tmp_path):
+    """A stripe child under --device cuda that sees no card exits non-zero
+    (never reruns on the CPU), and the runner counts and reports it."""
+    import sys
+
+    from licensee_tpu_torch.parallel.stripes import StripeError, StripeRunner
+
+    files = [os.path.join(FIXTURES, "mit", "LICENSE.txt")] * 4
+    manifest = tmp_path / "m.txt"
+    manifest.write_text("\n".join(files) + "\n")
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": REPO}
+    out = tmp_path / "o.jsonl"
+    child = __import__("subprocess").run(
+        [sys.executable, "-m", "licensee_tpu_torch.cli.main",
+         "batch-detect", str(manifest), "--output", str(out)],
+        env=env, capture_output=True, text=True, timeout=300)
+    assert child.returncode != 0 and "CUDA" in child.stderr
+    runner = StripeRunner(str(manifest), str(out), 2, max_restarts=1,
+                          base_env=env)
+    with pytest.raises(StripeError):
+        runner.run()
+    assert all(h.exit_codes and h.exit_codes[0] != 0 for h in runner.handles)
+    assert not out.exists()

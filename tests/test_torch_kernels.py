@@ -349,8 +349,15 @@ def test_plain_versions_count_no_launches(corpus):
     dice_cuda.topk_exact(*dice_cuda.score_pairs_fused_plain(
         dice_cuda.pack_meta(ct), ct.bits, *feats), 4)
     dice_cuda.topk_fused(dice_cuda.pack_meta(ct), ct.bits, *feats, 4)
+    from licensee_tpu_torch.parallel.mesh import (
+        build_mesh,
+        make_sharded_scorer,
+    )
+
+    make_sharded_scorer(ct, build_mesh(1, 2, devices=["cpu"] * 2))(*feats)
     assert dice_cuda.LAUNCHES == {"score_pairs_fused": 0,
                                   "best_match_fused": 0,
                                   "topk_fused": 0,
                                   "overlap_pairs_mma": 0,
-                                  "topk_exact": 0}
+                                  "topk_exact": 0,
+                                  "make_sharded_scorer": 0}

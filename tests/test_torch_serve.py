@@ -284,8 +284,14 @@ def test_bad_batcher_options_refused_as_jax(kwargs):
 
 
 def test_mesh_refused():
-    with pytest.raises(ValueError, match="one device"):
-        MicroBatcher(start=False, device="cpu", mesh="auto")
+    """A mesh over the pallas methods is refused in the JAX package's
+    words (a mesh the other methods take is served: test_torch_parallel)."""
+    with pytest.raises(ValueError) as want:
+        JaxMicroBatcher(start=False, method="pallas", mesh=(2, 1))
+    with pytest.raises(ValueError) as got:
+        MicroBatcher(start=False, device="cpu", method="pallas", mesh=(2, 1))
+    assert str(got.value) == str(want.value)
+    assert "single-device" in str(got.value)
 
 
 @pytest.mark.parametrize("pad_to", [0, -3])
