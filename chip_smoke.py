@@ -159,11 +159,11 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    --device cpu, --pipeline-depth 1 --workers 1 and phase 7's local run
    (entry paths aside; the two twins over the first 600 entries), and a
    remote git repository refused; --stripes
-   1, 2 and 4 over phase 5's 50,001-row manifest, each merged output
-   byte-identical to phase 5's run, with --stats-file (the merged stats
+   1, 2 and 4 over the first 25,001 rows of phase 5's manifest, each
+   merged output byte-identical to phase 5's first rows, with --stats-file (the merged stats
    must reconcile), --prom-file (each exposition must pass
    `check_exposition`, each stripe must have launched K1) and
-   --progress; a stripe SIGKILLed mid-run (over the first 25,001 rows)
+   --progress; a stripe SIGKILLed mid-run (over the same rows)
    whose restart the runner counts and whose merge reaches the same
    sha256; --stripes elastic
    over phase 4's manifest; --stripes 2 over 200 remote containers; an
@@ -173,14 +173,44 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    untimed drills.  A `stripes
    timing:` line gives each striped run's rows/s, summed read seconds
    and the card's utilization (nvidia-smi) beside its name and power
-   limit.
+   limit;
+11. fleet: `fleet --workers 2 --socket FRONT --http HOST:PORT` through
+   the port's CLI, its two `serve` workers on the card at the CLI's
+   defaults: phase 9's 10,000 T=47 variants from 64 front clients, 8 in
+   flight each, then 4,000 of them from 16 keep-alive clients through
+   the HTTP edge; worker w0 SIGKILLed a quarter into 3,000 more (zero
+   client errors, one restart counted with its signal, the respawned
+   worker answering and launching K1 again); a rolling reload through
+   the front door to a `corpus-build` artifact of the T=608 directory a
+   quarter into 3,000 more (each row under the old or the new corpus
+   and equal to the CPU verdict under it, both workers' fingerprints
+   moved); phase 9's 5,000 T=608 variants from 64 front clients and
+   2,000 through the edge; 16 open-loop edge clients
+   (`faults.open_loop_http_client`).  Every row equals a device='cpu'
+   batcher's (phase 9's references), trace ID, cache flag and worker
+   aside.  Then the verbs against the live fleet as child processes:
+   `stats --format prometheus` (the merged exposition must pass
+   `check_exposition`), the per-worker `stats` table, `traces`, `slo`
+   (its exit code must be its verdict, availability must hold), `top`
+   (one frame) and, once the watchdog has nothing firing, `alerts`;
+   each worker must report `fallbacks` 0 and launch K1 and nothing
+   else (its `device_kernel_launches` gauge); beside them, `fleet
+   --selftest`, `--selftest-reload` and `--selftest-tcp` with real
+   workers on the card, their `--stub` twins and `stats --selftest` as
+   child processes.  The fleet must stop on SIGTERM with exit 0.  A
+   `fleet timing:` line gives requests/s and total p50/p99 through the
+   front and the edge at both widths, each worker's flushes and K1
+   launches, restarts, seconds to boot the workers, to respawn one and
+   to roll, the SLO burns, nvidia-smi's utilization and per-process
+   memory, beside the card's name and power limit.
 
 A row's ``launches`` counts its kernel over its width's card runs of
-phases 4 to 8 and 10, each run between a reset of the counts and a read
-(the B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows: phase 9's
-runs at their width, the reload's at T=47; K5's rows: phase 10's
-`--mesh 1,1` runs); the planes kernel (`score_pairs_fused`) launches on
-no main path.
+phases 4 to 8, 10 and 11, each run between a reset of the counts and a
+read (the B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows: phase
+9's runs at their width, the reload's at T=47, and phase 11's workers'
+gauges, read before the kill, before the roll (T=47) and at the end;
+K5's rows: phase 10's `--mesh 1,1` runs); the planes kernel
+(`score_pairs_fused`) launches on no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -2179,12 +2209,14 @@ def remote_containers(torch, root: str, cont: dict, base: str, command,
     return report
 
 
-def cli_process(argv: list[str]) -> subprocess.Popen:
-    """The port's CLI as a child process (stdout dropped, stderr piped)."""
+def cli_process(argv: list[str],
+                stdout=subprocess.DEVNULL) -> subprocess.Popen:
+    """The port's CLI as a child process (stdout dropped unless asked
+    for, stderr piped)."""
     repo = os.path.dirname(os.path.abspath(__file__))
     return subprocess.Popen(
         [sys.executable, "-m", "licensee_tpu_torch.cli.main", *argv],
-        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        stdout=stdout, stderr=subprocess.PIPE, text=True,
         cwd=repo, env={**os.environ, "PYTHONPATH": repo})
 
 
@@ -2421,15 +2453,17 @@ def phase_scale(np, torch, seed: int, root: str, inputs: dict,
     with blob_host(cont["packed"]) as (base, command):
         remote = remote_containers(torch, root, cont, base, command,
                                    launches)
-        big, full = inputs["big"], inputs["big_full"]
+        # the stripes over the first 25,001 rows of phase 5's manifest
+        # (the script's time: phase 11 came after them)
+        big = prefix_manifest(inputs["big"], 25001)
+        full = first_lines(inputs["big_full"], 25001)
         for n in ("1", "2", "4"):
             timing[f"stripes {n}"] = striped(torch, f"vendored{n}", root,
                                              big, n, full)
         # the selftests' child processes run beside the untimed drills
         # that follow: the kill drill, the elastic and remote stripes
         t_self, selftest_procs = time.perf_counter(), start_selftests()
-        kill_drill(root, prefix_manifest(big, 25001),
-                   first_lines(full, 25001))
+        kill_drill(root, big, full)
         with open(os.path.join(root, "scale.vendored.default.jsonl"),
                   "rb") as fh:
             slice_full = fh.read()
@@ -2838,16 +2872,49 @@ def connect(target: str, timeout: float):
 
 def socket_run(target: str, reqs: list, clients: int, window: int,
                control=None, timeout: float = 120.0) -> tuple:
-    """``clients`` closed-loop clients over the socket, each on its own
-    connection sending its share of ``reqs`` ``window`` requests at a
-    time and reading their answers before it sends more.  With
-    ``control``, ``control(rows, resume)`` runs meanwhile on this thread
-    and the clients hold the last third of their shares until it calls
-    ``resume()``, so traffic flows before, during and after what it
-    does.  Returns (rows by id, seconds)."""
+    """`client_run` over the JSONL socket: (rows by id, seconds)."""
+    rows, took, _lat = client_run(target, reqs, clients, window, control,
+                                  timeout)
+    return rows, took
+
+
+def http_request(obj: dict) -> bytes:
+    """One keep-alive ``POST /classify`` of the fleet's HTTP edge."""
+    body = json.dumps(obj).encode()
+    return (b"POST /classify HTTP/1.1\r\nHost: edge\r\n"
+            b"Content-Type: application/json\r\n"
+            b"Content-Length: %d\r\n\r\n" % len(body)) + body
+
+
+def read_http(fh) -> tuple:
+    """(status, body) of one HTTP/1.1 response read from ``fh``."""
+    status = fh.readline()
+    if not status:
+        raise ConnectionError("the edge hung up")
+    length = 0
+    while (line := fh.readline()) not in (b"\r\n", b""):
+        name, _, value = line.partition(b":")
+        if name.strip().lower() == b"content-length":
+            length = int(value)
+    return int(status.split()[1]), fh.read(length)
+
+
+def client_run(target: str, reqs: list, clients: int, window: int,
+               control=None, timeout: float = 120.0,
+               http: bool = False) -> tuple:
+    """``clients`` closed-loop clients over the socket (with ``http``, the
+    fleet's HTTP edge, keep-alive), each on its own connection sending
+    its share of ``reqs`` ``window`` requests at a time and reading their
+    answers before it sends more.  With ``control``, ``control(rows)``
+    runs meanwhile on this thread and the clients hold the last third of
+    their shares until it returns, so traffic flows before, during and
+    after what it does.  Returns (rows by id, seconds, each request's
+    milliseconds from its window's write to its answer).  A non-200
+    answer of the edge is an error."""
     import threading
 
     rows: dict = {}
+    lats: list = []
     errors: list = []
     resume = threading.Event()
     if control is None:
@@ -2862,13 +2929,23 @@ def socket_run(target: str, reqs: list, clients: int, window: int,
                     if 3 * i >= 2 * len(mine) and not resume.wait(300):
                         raise TimeoutError("control never resumed")
                     part = mine[i:i + window]
-                    fh.write(b"".join(request_line(r) for r in part))
+                    frame = http_request if http else request_line
+                    t_sent = time.perf_counter()
+                    fh.write(b"".join(frame(r) for r in part))
                     fh.flush()
-                    for _r in part:
-                        line = fh.readline()
+                    for r in part:
+                        if http:
+                            code, line = read_http(fh)
+                            if code != 200:
+                                raise ConnectionError(f"HTTP {code}: {line}")
+                        else:
+                            line = fh.readline()
                         if not line:
                             raise ConnectionError("the worker hung up")
+                        lats.append((time.perf_counter() - t_sent) * 1e3)
                         row = json.loads(line)
+                        if row.get("id") != r["id"]:
+                            raise AssertionError(f"answer {row} to {r['id']}")
                         rows[row["id"]] = row
         except Exception as exc:  # noqa: BLE001 — reported below
             errors.append(f"client {k}: {exc!r}")
@@ -2892,7 +2969,7 @@ def socket_run(target: str, reqs: list, clients: int, window: int,
     if len(rows) != len(reqs):
         raise AssertionError(f"socket run: {len(rows)} rows for "
                              f"{len(reqs)} requests")
-    return rows, took
+    return rows, took, lats
 
 
 def client_process(target: str, reqs: list, clients: int, window: int,
@@ -3323,7 +3400,8 @@ def phase_serve(np, torch, seed: int, device: str = "cuda",
                 scale: ServeScale | None = None,
                 root: str | None = None) -> dict:
     """Phase 9: `serve` on ``device``.  Returns {"runs": [summaries],
-    "launches": {(run, kernel): n}}."""
+    "launches": {(run, kernel): n}, "refs": {socket run: the reference
+    rows by id}}."""
     if root is None:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
             return phase_serve(np, torch, seed, device, scale, tmp)
@@ -3510,7 +3588,552 @@ def phase_serve(np, torch, seed: int, device: str = "cuda",
     card = smi("name,power.limit") if on_card else "cpu"
     log(f"serve timing: {card}; {runs}; {share}")
     log(f"serve: phase 9 took {time.perf_counter() - t_phase:.1f} s")
+    report["refs"] = refs
     return report
+
+
+# -- phase 11: the fleet ---------------------------------------------------
+
+
+@dataclasses.dataclass
+class FleetScale:
+    """How much traffic phase 11 sends through the fleet: the defaults on
+    the card, `tiny` for the test that runs the phase on the CPU."""
+
+    variants: int = 10000       # front, 64 clients, T=47 (phase 9's mix)
+    variants_608: int = 5000    # and at T=608 after the roll
+    clients: int = 64
+    window: int = 8             # requests each client keeps in flight
+    edge_clients: int = 16
+    edge_requests: int = 4000   # through the edge at T=47; half at T=608
+    kill_requests: int = 3000   # the SIGKILL drill
+    reload_requests: int = 3000  # the rolling reload
+    open_loop_rate: float = 50.0  # each open-loop edge client's requests/s
+    open_loop_s: float = 3.0
+    selftests: tuple = ("real", "stub")  # `fleet --selftest*` children
+
+    @classmethod
+    def tiny(cls) -> "FleetScale":
+        return cls(variants=240, variants_608=120, clients=4, window=4,
+                   edge_clients=2, edge_requests=60, kill_requests=160,
+                   reload_requests=160, open_loop_rate=20.0,
+                   open_loop_s=1.0, selftests=())
+
+
+FLEET_SELFTESTS = {
+    "real": ("--selftest", "--selftest-reload", "--selftest-tcp"),
+    "stub": ("--selftest --stub", "--selftest-reload --stub",
+             "--selftest-tcp --stub"),
+}
+
+
+def fleet_verdict(row: dict) -> dict:
+    """A fleet row without what depends on timing or routing: the trace
+    ID, the cache flag and the worker that answered."""
+    return {k: v for k, v in verdict_of(row).items() if k != "worker"}
+
+
+def held_to_cpu(what: str, rows: dict, want: dict) -> None:
+    bad = [i for i in rows if fleet_verdict(rows[i]) != verdict_of(want[i])]
+    errors = [r for r in rows.values() if r.get("error")]
+    if bad or errors:
+        raise AssertionError(
+            f"fleet {what}: {len(bad)} rows differ from the device='cpu' "
+            f"batcher's (e.g. {[(rows[i], want[i]) for i in bad[:2]]}), "
+            f"{len(errors)} error rows (e.g. {errors[:2]})")
+
+
+def percentile(values: list, q: float) -> float:
+    """The nearest-rank ``q`` quantile of ``values``."""
+    ordered = sorted(values)
+    return ordered[min(len(ordered) - 1, int(q * len(ordered)))]
+
+
+def launch_counts(exposition: str) -> dict:
+    """{(worker label or None, kernel): n} of the exposition's
+    ``device_kernel_launches`` samples."""
+    out = {}
+    for line in exposition.splitlines():
+        m = re.match(r"device_kernel_launches\{([^}]*)\} (\S+)$", line)
+        if m:
+            labels = dict(re.findall(r'(\w+)="([^"]*)"', m.group(1)))
+            out[(labels.get("worker"), labels["kernel"])] = int(
+                float(m.group(2)))
+    return out
+
+
+def worker_launches(sock: str) -> dict:
+    """{kernel: launches} one worker's registry reports."""
+    from licensee_tpu_torch.fleet.wire import oneshot
+
+    text = oneshot(sock, {"op": "stats", "format": "prometheus"},
+                   60.0)["prometheus"]
+    return {k: n for (_w, k), n in launch_counts(text).items()}
+
+
+def front_stats(front: str) -> dict:
+    from licensee_tpu_torch.fleet.wire import oneshot
+
+    return oneshot(front, {"op": "stats"}, 60.0)["stats"]
+
+
+def reload_wants(reqs: list, corpora: dict) -> dict:
+    """{fingerprint: [(key, matcher, confidence)]} of ``reqs`` under each
+    corpus, on the CPU."""
+    from licensee_tpu_torch.kernels.batch import BatchClassifier
+
+    want = {}
+    for fp, corpus in corpora.items():
+        clf = BatchClassifier(corpus=corpus, device="cpu")
+        results = clf.classify_blobs([r["content"] for r in reqs],
+                                     filenames=["LICENSE"] * len(reqs))
+        want[fp] = [(r.key, r.matcher, r.confidence) for r in results]
+    return want
+
+
+def start_fleet_children(scale: FleetScale, device: str) -> dict:
+    """`fleet --selftest*` (real workers on ``device``, and the stub
+    twins) and `stats --selftest`, as child processes started together
+    (`finish_fleet_children` waits for them)."""
+    runs = [["stats", "--selftest"]]
+    for kind in scale.selftests:
+        for flags in FLEET_SELFTESTS[kind]:
+            dev = ["--device", device] if kind == "real" else []
+            runs.append(["fleet", *flags.split(), *dev])
+    return {" ".join(argv): cli_process(argv, stdout=subprocess.PIPE)
+            for argv in runs}
+
+
+def finish_fleet_children(procs: dict) -> dict:
+    """Wait for every child: each must exit 0 and its last JSON line
+    (stdout or stderr) must say ``"problems": []``.  Returns {run:
+    seconds it took after the start}."""
+    t0 = time.perf_counter()
+    took = {}
+    for name, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"{name} timed out") from None
+        took[name] = time.perf_counter() - t0
+        summary = next((json.loads(line) for line in reversed(
+            (out + err).splitlines()) if line.startswith('{"')), {})
+        if proc.returncode != 0 or summary.get("problems") != []:
+            raise AssertionError(f"{name}: exit {proc.returncode}: "
+                                 f"{out[-1500:]} {err[-3000:]}")
+    return took
+
+
+def fleet_verbs(front: str, workers: list) -> dict:
+    """`stats --format prometheus`, `traces`, `slo`, `top` (one frame)
+    and the per-worker `stats` against the live fleet, as child
+    processes started together: each must exit 0, but `slo`, which
+    exits 1 while an objective burns: its exit code must be its JSON's
+    verdict and the availability objective must hold.  The merged
+    exposition must pass `check_exposition`.  Returns {verb: stdout}."""
+    from licensee_tpu_torch.obs import check_exposition
+
+    verbs = {
+        "stats": ["stats", "--socket", front, "--format", "prometheus"],
+        "workers": ["stats", *[a for w in workers for a in ("--socket", w)]],
+        "traces": ["traces", "--socket", front, "--slowest", "1"],
+        "slo": ["slo", "--socket", front, "--json"],
+        "top": ["top", "--socket", front, "--interval", "0"],
+    }
+    procs = {name: cli_process(argv, stdout=subprocess.PIPE)
+             for name, argv in verbs.items()}
+    done = {}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        done[name] = (proc.returncode, out, err)
+    problems = []
+    for name, (rc, out, err) in done.items():
+        if name == "slo":
+            slo = json.loads(out)
+            if rc != (0 if slo.get("ok") else 1) or not slo[
+                    "objectives"]["availability"]["ok"]:
+                problems.append(f"slo: exit {rc}, {out[:1500]}")
+        elif rc != 0:
+            problems.append(f"{name}: exit {rc}, {err[-1500:]}")
+    bad = check_exposition(done["stats"][1])
+    if bad:
+        problems.append(f"the merged exposition: {bad[:3]}")
+    if "critical path" not in done["traces"][1]:
+        problems.append(f"traces: {done['traces'][1][:500]!r}")
+    if "WORKER" not in done["top"][1]:
+        problems.append(f"top: {done['top'][1][:500]!r}")
+    if problems:
+        raise AssertionError(f"fleet verbs: {problems}")
+    return {name: out for name, (_rc, out, _err) in done.items()}
+
+
+def await_quiet_alerts(front: str, bound_s: float = 90.0) -> float:
+    """Wait (at most ``bound_s``) until the watchdog has no active alert,
+    then run `alerts`, which must exit 0.  Returns the seconds waited."""
+    t0 = time.perf_counter()
+    while front_stats(front)["alerts"]["active"]:
+        if time.perf_counter() - t0 > bound_s:
+            break
+        time.sleep(1.0)
+    waited = time.perf_counter() - t0
+    proc = cli_process(["alerts", "--socket", front, "--history", "20"],
+                       stdout=subprocess.PIPE)
+    out, err = proc.communicate(timeout=120)
+    if proc.returncode != 0:
+        raise AssertionError(f"alerts: exit {proc.returncode} after "
+                             f"{waited:.1f} s of quiet: {out} {err}")
+    log(f"fleet alerts: none active after {waited:.1f} s without traffic; "
+        f"{out.strip().splitlines()[-1]}")
+    return waited
+
+
+def fleet_kill_drill(front: str, reqs: list, want: dict, scale: FleetScale,
+               on_card: bool, victims: dict) -> dict:
+    """SIGKILL worker w0 a quarter into a front run: zero client errors,
+    the rows equal the CPU batcher's, the supervisor counts one restart
+    (a SIGKILL, its flight recorder harvested) and the respawned worker
+    answers again, on the card its launch gauge above 0.  ``victims``
+    gets the killed process's launch counts, read just before the kill.
+    Returns the drill's numbers."""
+    import signal
+
+    drill = {}
+
+    def control(rows: dict) -> None:
+        deadline = time.monotonic() + 300
+        while len(rows) < len(reqs) // 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        backend = front_stats(front)["backends"]["w0"]
+        victims.update(worker_launches(backend["socket"]))
+        pid = backend["supervisor"]["pid"]
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        while time.perf_counter() - t_kill < 300:
+            stats = front_stats(front)
+            sup = stats["backends"]["w0"]["supervisor"]
+            if sup["state"] == "healthy" and sup["pid"] not in (None, pid):
+                drill["respawn_s"] = time.perf_counter() - t_kill
+                drill["restarts"] = stats["host"]["restarts"]
+                drill["log"] = sup["restart_log"][-1]
+                drill["during"] = len(rows)
+                return
+            time.sleep(0.05)
+        raise AssertionError(f"w0 never came back: {sup}")
+
+    rows, took, lats = client_run(front, reqs, scale.clients, scale.window,
+                                  control=control, timeout=600.0)
+    held_to_cpu("kill drill", rows, want)
+    log_entry = drill["log"]
+    if (drill["restarts"] != 1 or log_entry.get("signal") != 9
+            or log_entry.get("reason") != "crash"):
+        raise AssertionError(f"fleet kill drill: restarts "
+                             f"{drill['restarts']}, {log_entry}")
+    sock = front_stats(front)["backends"]["w0"]["socket"]
+    again = worker_launches(sock)
+    if on_card and not again.get("best_match_fused"):
+        raise AssertionError(f"the respawned w0 launched no K1: {again}")
+    return {**drill, "requests": len(reqs), "seconds": took,
+            "p50_ms": percentile(lats, 0.5), "p99_ms": percentile(lats, 0.99),
+            "flight_harvested": log_entry.get("flight_harvested")}
+
+
+def rolling_reload(front: str, reqs: list, want: dict, artifact: str,
+                   scale: FleetScale) -> dict:
+    """`{"op": "reload"}` on the front door to a `corpus-build` artifact
+    a quarter into a front run: the roll succeeds, both workers report
+    its fingerprint, no row is an error and each row names the old or
+    the new corpus and equals the CPU verdict under it."""
+    from licensee_tpu_torch.corpus.artifact import short_fingerprint
+    from licensee_tpu_torch.fleet.wire import oneshot
+
+    roll = {}
+
+    def control(rows: dict) -> None:
+        deadline = time.monotonic() + 300
+        while len(rows) < len(reqs) // 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        t0 = time.perf_counter()
+        roll["reply"] = oneshot(front, {"id": -1, "op": "reload",
+                                        "corpus": artifact}, 600.0)
+        roll["seconds"] = time.perf_counter() - t0
+
+    before = {name: b["socket"] for name, b in
+              front_stats(front)["backends"].items()}
+    rows, took, lats = client_run(front, reqs, scale.clients, scale.window,
+                                  control=control, timeout=600.0)
+    reply = roll["reply"].get("reload") or {}
+    fps = {name: oneshot(sock, {"op": "stats"}, 60.0)["stats"]["corpus"][
+        "fingerprint"] for name, sock in before.items()}
+    problems = []
+    if not reply.get("ok") or set(fps.values()) != {reply["fingerprint"]}:
+        problems.append(f"the roll: {roll['reply']}, workers {fps}")
+    bad = [i for i, r in rows.items()
+           if r.get("error") or r.get("corpus") not in want
+           or (r["key"], r["matcher"], r["confidence"])
+           != want[r["corpus"]][i]]
+    if bad:
+        problems.append(f"{len(bad)} rows wrong or of no known corpus, "
+                        f"e.g. {rows[bad[0]]}")
+    if problems:
+        raise AssertionError(f"fleet rolling reload: {problems}")
+    new = short_fingerprint(reply["fingerprint"])
+    return {"requests": len(reqs), "seconds": took,
+            "roll_s": roll["seconds"], "fingerprint": new,
+            "p50_ms": percentile(lats, 0.5), "p99_ms": percentile(lats, 0.99),
+            "rows_new": sum(r["corpus"] == new for r in rows.values())}
+
+
+def open_loop_edge(edge: str, scale: FleetScale) -> dict:
+    """``edge_clients`` open-loop keep-alive clients through the edge
+    (`fleet/faults.py:open_loop_http_client`), in threads: no stalled
+    client and no answer but 200."""
+    import threading
+
+    from licensee_tpu_torch.fleet import faults
+
+    results = [None] * scale.edge_clients
+
+    def one(k: int) -> None:
+        results[k] = faults.open_loop_http_client(
+            edge, scale.open_loop_rate, scale.open_loop_s, timeout_s=60.0)
+
+    threads = [threading.Thread(target=one, args=(k,), daemon=True)
+               for k in range(scale.edge_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=scale.open_loop_s + 120)
+    if any(r is None or r["stalled"] or r["non_200"] for r in results):
+        brief = [{k: v for k, v in (r or {}).items() if k != "lats_ms"}
+                 for r in results]
+        raise AssertionError(f"open-loop edge clients: {brief}")
+    lats = [x for r in results for x in r["lats_ms"]]
+    sent = sum(r["sent"] for r in results)
+    return {"requests": sent, "offered_per_s": sent / max(
+        r["send_elapsed_s"] for r in results),
+        "p50_ms": percentile(lats, 0.5), "p99_ms": percentile(lats, 0.99)}
+
+
+def phase_fleet(np, torch, seed: int, device: str = "cuda",
+                scale: FleetScale | None = None, root: str | None = None,
+                refs: dict | None = None) -> dict:
+    """Phase 11: `fleet --workers 2 --socket FRONT --http HOST:PORT` on
+    ``device`` (the module's docstring lists its runs).  ``refs`` are
+    phase 9's reference rows of the same requests, by run label, where
+    they exist.  Returns {"launches": {(run, kernel): n}, "timing":
+    {...}}."""
+    if root is None:
+        with tempfile.TemporaryDirectory(prefix="cs_fleet_") as tmp:
+            return phase_fleet(np, torch, seed, device, scale, tmp, refs)
+    from licensee_tpu_torch.corpus.artifact import (
+        corpus_fingerprint,
+        short_fingerprint,
+    )
+    from licensee_tpu_torch.corpus.compiler import default_corpus
+    from licensee_tpu_torch.corpus.spdx import load_spdx_dir, spdx_corpus
+    from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
+    from licensee_tpu_torch.fleet.selftest import _free_port
+    from licensee_tpu_torch.fleet.wire import oneshot
+
+    scale = scale or FleetScale()
+    refs = refs or {}
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit") if on_card else "cpu"
+
+    # -- inputs: phase 9's request mix, the T=608 directory's artifact --
+    spdx_dir = synth_spdx_dir(os.path.join(root, "spdx-src"), SPDX_T, seed)
+    corpus_608 = spdx_corpus(spdx_dir)
+    artifact = os.path.join(root, "spdx608.corpus.npz")
+    rc, _out, err, _s = run_verb(["corpus-build", "--corpus", spdx_dir,
+                                  "--output", artifact])
+    if rc != 0:
+        raise RuntimeError(f"corpus-build: {err[-2000:]}")
+    bases = vendored_bases()
+    bases_608 = [(t.key, t.content) for t in load_spdx_dir(spdx_dir)]
+    variants = variant_requests(bases, scale.variants, "a")
+    variants_608 = variant_requests(bases_608, scale.variants_608, "b")
+    drill_reqs = variant_requests(bases, scale.kill_requests, "k")
+    roll_reqs = variant_requests(bases, scale.reload_requests, "r")
+    want = refs.get("T=47 64 clients")
+    if want is None or len(want) != len(variants):
+        want = cpu_rows(variants)
+    want_608 = refs.get(f"T={SPDX_T} 64 clients")
+    if want_608 is None or len(want_608) != len(variants_608):
+        want_608 = cpu_rows(variants_608, corpus=corpus_608)
+    want_drill = cpu_rows(drill_reqs)
+    want_roll = reload_wants(roll_reqs, {
+        short_fingerprint(corpus_fingerprint(c)): c
+        for c in (default_corpus(), corpus_608)})
+    edge_47 = variants[:scale.edge_requests]
+    edge_608 = variants_608[:scale.edge_requests // 2]
+    log(f"fleet inputs: {len(variants)} T=47 and {len(variants_608)} "
+        f"T={SPDX_T} variants, {len(drill_reqs)} for the kill drill, "
+        f"{len(roll_reqs)} for the roll, references ready "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- boot --
+    sock_dir = os.path.join(root, "w")
+    front = os.path.join(root, "front.sock")
+    edge = f"127.0.0.1:{_free_port()}"
+    fleet_log = open(os.path.join(root, "fleet.log"), "w+")
+    t0 = time.perf_counter()
+    fleet = subprocess.Popen(
+        [sys.executable, "-m", "licensee_tpu_torch.cli.main", "fleet",
+         "--workers", "2", "--socket", front, "--socket-dir", sock_dir,
+         # the edge's clients share one address, so one token bucket:
+         # a rate above the run's keeps 429s out of the measurement
+         "--http", edge, "--edge-rate", "1000000", "--device", device],
+        stdout=subprocess.DEVNULL, stderr=fleet_log,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    timing = {"card": card}
+    launches = {}
+    try:
+        while not os.path.exists(front):
+            if fleet.poll() is not None or time.perf_counter() - t0 > 600:
+                fleet_log.seek(0)
+                raise AssertionError(f"the fleet did not boot: exit "
+                                     f"{fleet.poll()}: {fleet_log.read()}")
+            time.sleep(0.05)
+        timing["boot_s"] = time.perf_counter() - t0
+        workers = {name: b["socket"] for name, b in
+                   front_stats(front)["backends"].items()}
+
+        # -- traffic at T=47: the front, then the edge --
+        util = UtilSampler() if on_card else contextlib.nullcontext()
+        with util:
+            rows, took, lats = client_run(front, variants, scale.clients,
+                                          scale.window, timeout=600.0)
+        held_to_cpu("front T=47", rows, want)
+        runs = [("front T=47", len(variants), took, lats)]
+        rows, took, lats = client_run(edge, edge_47, scale.edge_clients,
+                                      scale.window, timeout=600.0, http=True)
+        held_to_cpu("edge T=47", rows, want)
+        runs.append(("edge T=47", len(edge_47), took, lats))
+        timing["utilization"] = util.describe() if on_card else "not measured"
+
+        # -- a worker SIGKILLed mid-run --
+        victim = {}
+        timing["kill"] = fleet_kill_drill(front, drill_reqs, want_drill,
+                                          scale, on_card, victim)
+        pre_roll = {w: worker_launches(s) for w, s in workers.items()}
+
+        # -- a rolling reload to the T=608 artifact under load --
+        timing["roll"] = rolling_reload(front, roll_reqs, want_roll,
+                                        artifact, scale)
+
+        # -- traffic at T=608: the front, the edge, the open-loop edge --
+        rows, took, lats = client_run(front, variants_608, scale.clients,
+                                      scale.window, timeout=600.0)
+        held_to_cpu(f"front T={SPDX_T}", rows, want_608)
+        runs.append((f"front T={SPDX_T}", len(variants_608), took, lats))
+        rows, took, lats = client_run(edge, edge_608, scale.edge_clients,
+                                      scale.window, timeout=600.0, http=True)
+        held_to_cpu(f"edge T={SPDX_T}", rows, want_608)
+        runs.append((f"edge T={SPDX_T}", len(edge_608), took, lats))
+        timing["open_loop"] = open_loop_edge(edge, scale)
+        timing["runs"] = [
+            {"run": run, "requests": n, "seconds": took,
+             "requests_per_s": n / took, "p50_ms": percentile(lats, 0.5),
+             "p99_ms": percentile(lats, 0.99)}
+            for run, n, took, lats in runs]
+
+        if on_card:
+            # the two workers' processes on the card, before the
+            # children add their own
+            timing["memory"] = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=used_memory",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                timeout=60).stdout.strip().replace("\n", "; ")
+        else:
+            timing["memory"] = "not measured"
+
+        # -- the children (selftests) beside the verbs and the quiet --
+        children = start_fleet_children(scale, device)
+        t_children = time.perf_counter()
+        verbs = fleet_verbs(front, list(workers.values()))
+        slo = json.loads(verbs["slo"])
+        timing["slo"] = {"ok": slo["ok"], **{
+            name: obj["max_burn"]
+            for name, obj in sorted(slo["objectives"].items())}}
+        per_worker = launch_counts(verbs["stats"])
+        end = {w: {k: n for (wl, k), n in per_worker.items() if wl == w}
+               for w in workers}
+        stats = {}
+
+        for w, sock in workers.items():
+            st = oneshot(sock, {"op": "stats"}, 60.0)["stats"]
+            stats[w] = st
+            sched = st["scheduler"]
+            if sched["fallbacks"] or sched["completion_errors"]:
+                raise AssertionError(f"fleet {w}: fallbacks "
+                                     f"{sched['fallbacks']}, completion "
+                                     f"errors {sched['completion_errors']}")
+            others = {k: n for k, n in end[w].items()
+                      if n and k != "best_match_fused"}
+            if others or (on_card and not end[w].get("best_match_fused")):
+                raise AssertionError(f"fleet {w}: launches {end[w]}")
+        timing["workers"] = {
+            w: {"flushes": stats[w]["scheduler"]["device_batches"],
+                "k1_launches": end[w].get("best_match_fused", 0),
+                "corpus": stats[w]["corpus"]["fingerprint"][:12]}
+            for w in workers}
+        timing["victim_k1_launches"] = victim.get("best_match_fused", 0)
+        timing["quiet_s"] = await_quiet_alerts(front)
+        timing["children"] = finish_fleet_children(children)
+        log(f"fleet children: {', '.join(children)} passed "
+            f"({time.perf_counter() - t_children:.1f} s after their start)")
+        # the T=47 share: the victim before its death and every worker
+        # before the roll; the rest (the roll's validation and warm-up,
+        # T=608 traffic) at T=608
+        k1_47 = victim.get("best_match_fused", 0) + sum(
+            c.get("best_match_fused", 0) for c in pre_roll.values())
+        k1_all = victim.get("best_match_fused", 0) + sum(
+            c.get("best_match_fused", 0) for c in end.values())
+        launches[("serve", "best_match_fused")] = k1_47
+        launches[("serve608", "best_match_fused")] = k1_all - k1_47
+    finally:
+        if fleet.poll() is None:
+            fleet.terminate()
+            try:
+                fleet.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                fleet.kill()
+                fleet.wait()
+        fleet_log.close()
+    if fleet.returncode != 0 or os.path.exists(front):
+        raise AssertionError(f"the fleet's stop: exit {fleet.returncode}, "
+                             f"front socket left: {os.path.exists(front)}")
+    timing["launches"] = {"T=47": launches[("serve", "best_match_fused")],
+                          f"T={SPDX_T}": launches[("serve608",
+                                                   "best_match_fused")]}
+    runs = "; ".join(
+        f"{r['run']}: {r['requests']} requests, {r['requests_per_s']:.1f} "
+        f"req/s, total p50 {r['p50_ms']:.3f} p99 {r['p99_ms']:.3f} ms"
+        for r in timing["runs"])
+    ol, kill, roll = timing["open_loop"], timing["kill"], timing["roll"]
+    log(f"fleet timing: {card}; {runs}; open-loop edge "
+        f"({scale.edge_clients} clients): {ol['requests']} requests at "
+        f"{ol['offered_per_s']:.1f} offered req/s, p50 {ol['p50_ms']:.3f} "
+        f"p99 {ol['p99_ms']:.3f} ms; workers "
+        + ", ".join(f"{w}: {v['flushes']} flushes, {v['k1_launches']} K1 "
+                    f"launches" for w, v in timing["workers"].items())
+        + f" (the killed w0: {timing['victim_k1_launches']} K1 launches); "
+        f"K1 launches T=47 {timing['launches']['T=47']} / T={SPDX_T} "
+        f"{timing['launches'][f'T={SPDX_T}']}; restarts {kill['restarts']}; "
+        f"boot {timing['boot_s']:.3f} s (two workers), respawn "
+        f"{kill['respawn_s']:.3f} s after the SIGKILL; kill drill "
+        f"{kill['requests']} requests, 0 errors, p99 {kill['p99_ms']:.3f} "
+        f"ms; roll {roll['roll_s']:.3f} s to {roll['fingerprint']} under "
+        f"{roll['requests']} requests ({roll['rows_new']} under the new "
+        f"corpus), p99 {roll['p99_ms']:.3f} ms; {timing['utilization']}; "
+        f"per-process memory {timing['memory']}; slo "
+        f"{json.dumps(timing['slo'])} (max burn by objective); alerts "
+        f"quiet after {timing['quiet_s']:.1f} s")
+    log(f"fleet: phase 11 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "timing": timing}
 
 
 def main() -> int:
@@ -3541,7 +4164,11 @@ def main() -> int:
     rows += phase_k5(np, torch, args.seed, sm_clocks_per_s)
     log(f"phase 10's K5 took {time.perf_counter() - t0:.1f} s")
     launches = phase_slice(np, torch, args.seed)
-    launches.update(phase_serve(np, torch, args.seed)["launches"])
+    serve = phase_serve(np, torch, args.seed)
+    launches.update(serve["launches"])
+    fleet = phase_fleet(np, torch, args.seed, refs=serve["refs"])
+    for key, n in fleet["launches"].items():
+        launches[key] = launches.get(key, 0) + n
     for row in rows:
         row["launches"] = launches.get(
             (row.pop("slice_run"), row["name"].split("@")[0]), 0)

@@ -29,6 +29,17 @@
         [--trace-sample RATE] [--trace-slow-ms MS] [--trace-log PATH] \\
         [--mesh DATA[,MODEL]|auto] [--device cuda|cpu] \\
         [--selftest | --selftest-reload]
+    python -m licensee_tpu_torch.cli.main fleet --workers N \\
+        --socket FRONT [--http HOST:PORT] [--socket-dir DIR] \\
+        [--federate TARGET,...] [--hedge-ms MS|auto|off] \\
+        [--pool-per-worker N] [--edge-token NAME=TOKEN] [--edge-rate RPS] \\
+        [--edge-burst N] [--restart-backoff-ms MS] [--boot-timeout SECS] \\
+        [--device cuda|cpu] [serve's flags] \\
+        | --selftest | --selftest-reload | --selftest-tcp [--stub]
+    python -m licensee_tpu_torch.cli.main stats --socket PATH [...] \\
+        [--format json|prometheus] [--watch SECS] [--trace N] | --selftest
+    python -m licensee_tpu_torch.cli.main traces|slo|top|alerts \\
+        --socket FRONT [...]
 
 `detect` (the default command: a bare path runs it), `diff`,
 `license-path`, `version` and `help` are the reference's verbs
@@ -59,14 +70,22 @@ flush with K1 on the card unless ``--device cpu`` is given.
 ``--stripes N`` scales `batch-detect` out over N worker processes, each
 one stripe of the manifest, and merges their shards
 (`parallel/stripes.py`); ``--mesh`` and ``--device-lanes`` spread one
-process's scoring over several devices (`parallel/mesh.py`).  The other
-verbs of `licensee_tpu/cli/main.py` (`stats`, `traces`, `slo`, `top`,
-`alerts`, `fleet`, ...) wait for later slices (ROADMAP A).
+process's scoring over several devices (`parallel/mesh.py`).  `fleet`
+supervises N `serve` workers (each on the card unless ``--device cpu``)
+behind one routed front socket and an optional HTTP edge
+(`fleet/supervisor.py`, `fleet/router.py`, `fleet/http_edge.py`);
+`stats`, `traces`, `slo`, `top` and `alerts` read a worker or a fleet's
+front door (the metrics store, the trace collector and the anomaly
+watchdog live in the router: `obs/tsdb.py`, `obs/collect.py`,
+`obs/anomaly.py`).  The tenancy and jobs tiers (`fleet --tenants`,
+`--jobs-dir`, `--selftest-jobs`, `--selftest-tenant`) and the `jobs`
+verb wait for a later slice (ROADMAP A).
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import os
 import re
@@ -759,16 +778,30 @@ def _dump_run_artifacts(args, stats) -> None:
             rows_g.labels(kind=kind).set(getattr(stats, kind))
         # the port's own: the card kernels this process launched, so a
         # striped run's merged exposition shows each stripe's kernels
-        from licensee_tpu_torch.kernels import dice_cuda
+        launch_gauge(registry)()
+        _atomic_write(args.prom_file, render_prometheus(registry))
 
-        launch_g = registry.gauge(
-            "device_kernel_launches",
-            "Kernel launches on the card by this process, by kernel",
-            labels=("kernel",),
-        )
+
+def launch_gauge(registry):
+    """The port's ``device_kernel_launches{kernel=...}`` gauge on
+    ``registry``, and the function that sets it to the card kernels
+    this process has launched (`dice_cuda.LAUNCHES`): `batch-detect
+    --prom-file` calls it once, each `serve` worker at every scrape, so
+    a striped run's or a fleet's merged exposition shows the kernels of
+    each process."""
+    from licensee_tpu_torch.kernels import dice_cuda
+
+    launch_g = registry.gauge(
+        "device_kernel_launches",
+        "Kernel launches on the card by this process, by kernel",
+        labels=("kernel",),
+    )
+
+    def collect(_registry=None) -> None:
         for kernel, n in dice_cuda.LAUNCHES.items():
             launch_g.labels(kernel=kernel).set(n)
-        _atomic_write(args.prom_file, render_prometheus(registry))
+
+    return collect
 
 
 class _Profile:
@@ -1134,6 +1167,7 @@ def cmd_serve(args) -> int:
         # a bad option or mesh, or no CUDA device without --device cpu
         print(f"error: {exc}", file=sys.stderr)
         return 1
+    batcher.obs.registry.add_collector(launch_gauge(batcher.obs.registry))
     if flight is not None:
         flight.register_metrics(batcher.obs.registry)
         flight.start()
@@ -1156,6 +1190,909 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _scrape_row(socket_path: str, request: dict, timeout: float) -> dict:
+    """One control-verb round trip to a worker socket; raises OSError
+    (WireError) on any transport or parse failure.  The wire protocol
+    lives in ONE place — fleet/wire.py — shared with the router and
+    supervisor probes (the module is stdlib-only, no device imports)."""
+    from licensee_tpu_torch.fleet.wire import oneshot
+
+    return oneshot(socket_path, request, timeout)
+
+
+def socket_labels(sockets: list[str]) -> dict[str, str]:
+    """Display label per scraped socket: the basename — unless two
+    sockets share one (two fleets, each with a w0.sock), in which case
+    the colliding entries keep their full paths so no worker silently
+    vanishes from the merged view."""
+    from collections import Counter
+
+    counts = Counter(os.path.basename(s) for s in sockets)
+    return {
+        s: (
+            os.path.basename(s)
+            if counts[os.path.basename(s)] == 1
+            else s
+        )
+        for s in sockets
+    }
+
+
+def stats_table_rows(
+    snaps: dict, prev: dict | None = None, dt: float | None = None,
+    rates: dict | None = None,
+) -> list[list[str]]:
+    """The merged fleet table: one row per scraped worker socket.
+    ``snaps`` maps label -> stats dict (or None for an unreachable
+    worker); ``prev``/``dt`` from the previous --watch round turn
+    completed-counter deltas into a live req/s column.  ``rates``
+    overrides REQ_S per label with a store-backed ``rate()`` (a target
+    that serves ``{"op": "query"}`` has retained history, so the rate
+    is honest from the FIRST frame); a None value there means the
+    store is reachable but has no window yet — render "-", never a
+    fabricated 0.0."""
+    header = ["WORKER", "UP_S", "DONE", "Q", "INFL", "CACHE%", "CORPUS",
+              "P50_MS", "P99_MS", "REQ_S"]
+    rows = [header]
+    for label, snap in snaps.items():
+        if not snap:
+            rows.append([label, "-", "-", "-", "-", "-", "-", "-", "-",
+                         "down"])
+            continue
+        sched = snap.get("scheduler") or {}
+        cache = snap.get("cache") or {}
+        total = (snap.get("latency_ms") or {}).get("total") or {}
+        hit_rate = cache.get("hit_rate")
+        done = sched.get("completed")
+        rate = "-"
+        if rates is not None and label in rates:
+            value = rates[label]
+            rate = "-" if value is None else f"{value:.1f}"
+        elif prev and dt and label in prev and prev[label]:
+            before = (prev[label].get("scheduler") or {}).get("completed")
+            if isinstance(done, (int, float)) and isinstance(
+                before, (int, float)
+            ) and dt >= 0.2 and done >= before:
+                # done < before means the counter reset (the supervisor
+                # restarted the worker): no honest rate this frame.
+                # dt < 0.2s means two frames landed near-instantly
+                # (--watch 0 drills): a delta over ~no time is noise —
+                # keep "-" rather than print a made-up 0.0
+                rate = f"{(done - before) / dt:.1f}"
+
+        def cell(value, fmt="{}"):
+            return "-" if value is None else fmt.format(value)
+
+        # the serving fingerprint, short form — in a multi-tenant
+        # fleet this is the column that shows which corpus each pool's
+        # workers are actually on (and a roll sweeping through them)
+        corpus_fp = (snap.get("corpus") or {}).get("fingerprint")
+        rows.append([
+            label,
+            cell(snap.get("uptime_s"), "{:.0f}"),
+            cell(done),
+            cell(sched.get("queue_depth")),
+            cell(sched.get("in_flight")),
+            "-" if hit_rate is None else f"{hit_rate * 100:.1f}",
+            corpus_fp[:12] if isinstance(corpus_fp, str) else "-",
+            cell(total.get("p50_ms")),
+            cell(total.get("p99_ms")),
+            rate,
+        ])
+    return rows
+
+
+def _render_table(rows: list[list[str]], stream) -> None:
+    widths = [
+        max(len(str(row[i])) for row in rows)
+        for i in range(len(rows[0]))
+    ]
+    for row in rows:
+        stream.write(
+            "  ".join(str(c).ljust(w) for c, w in zip(row, widths)).rstrip()
+            + "\n"
+        )
+
+
+def _store_req_rate(
+    sock: str, timeout: float, window: float
+) -> tuple[bool, float | None]:
+    """REQ_S from the target's telemetry store: ``rate()`` over the
+    stored completion counter via ``{"op": "query"}``.  Returns
+    ``(capable, rate)``: capable False means the target is a bare
+    worker with no store verb — the caller falls back to the
+    completed-counter delta path; rate None means the store answered
+    but has no two-sample window yet (render "-", never 0.0)."""
+    try:
+        row = _scrape_row(
+            sock,
+            {
+                "op": "query", "series": "fleet_requests_total",
+                "fn": "rate", "window": window,
+                "labels": {"event": "ok"},
+            },
+            timeout,
+        )
+    except (OSError, ValueError):
+        return False, None
+    if "query" in row:
+        value = (row["query"] or {}).get("value")
+        return True, (None if value is None else float(value))
+    if str(row.get("error", "")).startswith("unknown_series"):
+        # a store-capable front whose scrape rounds have not minted
+        # the series yet (cold start): keep querying, show "-" so far
+        return True, None
+    return False, None
+
+
+def _stats_watch(
+    sockets: list[str], interval: float, timeout: float,
+    iterations: int | None = None,
+) -> int:
+    """The operator view of a fleet: scrape every socket, print ONE
+    merged table, redraw every ``interval`` seconds (Ctrl-C stops).
+    ``iterations`` bounds the loop (None = forever) — tests use it.
+
+    REQ_S prefers the target's retained telemetry store (the fleet
+    front's ``{"op": "query"}`` verb) — honest from the first frame;
+    a bare worker without the verb keeps the two-frame
+    completed-counter delta."""
+    import itertools
+    import time as timelib
+
+    labels = socket_labels(sockets)
+    prev: dict = {}
+    prev_t: float | None = None
+    # None = unprobed; the probe result is remembered so a bare worker
+    # is asked exactly once, not re-probed into an error every frame
+    capable: dict[str, bool | None] = {s: None for s in sockets}
+    window = max(10.0, 2.0 * interval)
+    for i in itertools.count():
+        if iterations is not None and i >= iterations:
+            return 0
+        snaps = {}
+        rates: dict = {}
+        for sock in sockets:
+            try:
+                row = _scrape_row(sock, {"op": "stats"}, timeout)
+                snaps[labels[sock]] = row.get("stats")
+            except (OSError, ValueError):
+                snaps[labels[sock]] = None
+                continue
+            if capable[sock] is not False:
+                ok, value = _store_req_rate(sock, timeout, window)
+                capable[sock] = ok
+                if ok:
+                    rates[labels[sock]] = value
+        now = timelib.perf_counter()
+        dt = None if prev_t is None else now - prev_t
+        table = stats_table_rows(snaps, prev, dt, rates=rates)
+        if interval > 0 and sys.stdout.isatty():
+            sys.stdout.write("\x1b[2J\x1b[H")  # clear + home, like watch(1)
+        _render_table(table, sys.stdout)
+        sys.stdout.flush()
+        prev, prev_t = snaps, now
+        if interval <= 0:
+            return 0
+        try:
+            timelib.sleep(interval)
+        except KeyboardInterrupt:
+            return 0
+
+
+def cmd_stats(args) -> int:
+    """Observability exporter client: scrape running serve workers'
+    metrics (JSON, Prometheus exposition, or — for several --socket
+    flags or --watch — one merged fleet table) or a trace tail over the
+    Unix-socket control verbs, or run the obs-layer selftest."""
+    if args.selftest:
+        from licensee_tpu_torch.obs.selftest import selftest as obs_selftest
+
+        return obs_selftest()
+    sockets = args.socket or []
+    if not sockets:
+        print(
+            "error: need --socket PATH (a running `licensee-tpu-torch serve "
+            "--socket` worker; repeat for a fleet) or --selftest",
+            file=sys.stderr,
+        )
+        return 1
+    if args.trace is not None:
+        if len(sockets) > 1:
+            print(
+                "error: --trace reads one worker at a time (one --socket)",
+                file=sys.stderr,
+            )
+            return 1
+        try:
+            row = _scrape_row(
+                sockets[0], {"op": "trace", "n": args.trace}, args.timeout
+            )
+        except (OSError, ValueError) as exc:
+            print(
+                f"error: cannot scrape {sockets[0]!r}: {exc}",
+                file=sys.stderr,
+            )
+            return 1
+        if "traces" not in row:
+            print(f"error: unexpected response: {row}", file=sys.stderr)
+            return 1
+        for trace in row["traces"]:
+            print(json.dumps(trace))
+        return 0
+    if args.format == "prometheus":
+        labels = socket_labels(sockets)
+        expositions = {}
+        for sock in sockets:
+            try:
+                row = _scrape_row(
+                    sock, {"op": "stats", "format": "prometheus"},
+                    args.timeout,
+                )
+            except (OSError, ValueError) as exc:
+                print(
+                    f"error: cannot scrape {sock!r}: {exc}",
+                    file=sys.stderr,
+                )
+                return 1
+            if "prometheus" not in row:
+                # a version-mismatched worker answering an error row
+                # must fail the scrape loudly, never record an empty
+                # exposition with exit 0
+                print(
+                    f"error: unexpected response from {sock!r}: {row}",
+                    file=sys.stderr,
+                )
+                return 1
+            expositions[labels[sock]] = row["prometheus"]
+        if len(expositions) == 1:
+            sys.stdout.write(next(iter(expositions.values())))
+        else:
+            from licensee_tpu_torch.obs import merge_expositions
+
+            sys.stdout.write(merge_expositions(expositions))
+        return 0
+    if args.watch is not None or len(sockets) > 1:
+        # the fleet operator view: merged table, optionally redrawn
+        return _stats_watch(
+            sockets, args.watch or 0.0, args.timeout,
+            iterations=args.watch_iterations,
+        )
+    try:
+        row = _scrape_row(sockets[0], {"op": "stats"}, args.timeout)
+    except (OSError, ValueError) as exc:
+        print(
+            f"error: cannot scrape {sockets[0]!r}: {exc}", file=sys.stderr
+        )
+        return 1
+    if "stats" in row:
+        print(json.dumps(row["stats"]))
+        return 0
+    print(f"error: unexpected response: {row}", file=sys.stderr)
+    return 1
+
+
+def cmd_traces(args) -> int:
+    """The telemetry-plane viewer: ask a fleet front socket for
+    ASSEMBLED cross-process trace trees (`{"op": "traces"}` — router
+    spans + every worker's serving spans joined by 16-hex trace ID,
+    with critical-path self-times) and render them.  "Where did the
+    p99 go" is one command: `licensee-tpu-torch traces --socket front.sock
+    --slowest 1`."""
+    from licensee_tpu_torch.obs.collect import render_tree
+
+    payload: dict = {"op": "traces", "n": args.slowest or args.n}
+    if args.id:
+        payload["trace_id"] = args.id
+    try:
+        row = _scrape_row(args.socket, payload, args.timeout)
+    except (OSError, ValueError) as exc:
+        print(
+            f"error: cannot scrape {args.socket!r}: {exc}",
+            file=sys.stderr,
+        )
+        return 1
+    trees = row.get("traces")
+    if not isinstance(trees, list):
+        print(
+            f"error: unexpected response: {row} (is {args.socket!r} a "
+            "fleet front socket? workers answer {'op': 'trace'} only)",
+            file=sys.stderr,
+        )
+        return 1
+    if args.slowest:
+        trees = trees[: args.slowest]
+    if not trees:
+        print("no assembled traces retained", file=sys.stderr)
+        return 1
+    for i, tree in enumerate(trees):
+        if args.json:
+            print(json.dumps(tree))
+        else:
+            if i:
+                print()
+            print(render_tree(tree))
+    return 0
+
+
+def cmd_slo(args) -> int:
+    """The SLO verdict: scrape a worker (or fleet front) socket's
+    stats and render the multi-window burn-rate table (obs/slo.py).
+    Exit 0 when every objective is inside its burn thresholds, 1 when
+    any fast/slow burn alert fires."""
+    try:
+        row = _scrape_row(args.socket, {"op": "stats"}, args.timeout)
+    except (OSError, ValueError) as exc:
+        print(
+            f"error: cannot scrape {args.socket!r}: {exc}",
+            file=sys.stderr,
+        )
+        return 1
+    slo = (row.get("stats") or {}).get("slo")
+    if not isinstance(slo, dict):
+        print(
+            f"error: no slo block in stats from {args.socket!r}",
+            file=sys.stderr,
+        )
+        return 1
+    if args.json:
+        print(json.dumps(slo))
+        return 0 if slo.get("ok") else 1
+    from licensee_tpu_torch.obs.slo import WINDOWS
+
+    window_names = [w for w, _secs in WINDOWS]
+    rows = [["OBJECTIVE", "TARGET", *[f"BURN_{w}" for w in window_names],
+             "VERDICT"]]
+    for name, obj in sorted((slo.get("objectives") or {}).items()):
+        windows = obj.get("windows") or {}
+        verdict = "ok"
+        if obj.get("fast_burn_alert"):
+            verdict = "PAGE (fast burn)"
+        elif obj.get("slow_burn_alert"):
+            verdict = "TICKET (slow burn)"
+        rows.append([
+            name,
+            f"{obj.get('target', 0) * 100:g}%",
+            *[str(windows.get(w, "-")) for w in window_names],
+            verdict,
+        ])
+    _render_table(rows, sys.stdout)
+    print(f"slo: {'ok' if slo.get('ok') else 'BURNING'}")
+    return 0 if slo.get("ok") else 1
+
+
+def cmd_alerts(args) -> int:
+    """The anomaly watchdog's ledger: ask a fleet front socket for
+    ``{"op": "alerts"}`` (the watchdog snapshot — active alerts,
+    fire/clear history, declared rules) and render it.  Exit 0 when
+    nothing is firing, 1 when any alert is active."""
+    try:
+        row = _scrape_row(args.socket, {"op": "alerts"}, args.timeout)
+    except (OSError, ValueError) as exc:
+        print(
+            f"error: cannot scrape {args.socket!r}: {exc}",
+            file=sys.stderr,
+        )
+        return 1
+    snap = row.get("alerts")
+    if not isinstance(snap, dict):
+        # a bare worker answers bad_request: the watchdog lives on the
+        # fleet front (the router owns the telemetry store)
+        print(
+            f"error: no alerts verb at {args.socket!r} (need a fleet "
+            f"front socket): {row.get('error', row)}",
+            file=sys.stderr,
+        )
+        return 1
+    if args.json:
+        print(json.dumps(snap))
+        return 0 if not snap.get("active") else 1
+    active = snap.get("active") or []
+    rows = [["RULE", "KIND", "SERIES", "SINCE_S", "DETAIL"]]
+    for alert in active:
+        rows.append([
+            alert.get("rule", "-"),
+            alert.get("kind", "-"),
+            alert.get("series", "-"),
+            f"{alert.get('since_s', 0):.0f}",
+            json.dumps(alert.get("detail") or {}),
+        ])
+    if active:
+        _render_table(rows, sys.stdout)
+    else:
+        print("no active alerts")
+    if args.history:
+        history = (snap.get("history") or [])[-args.history:]
+        for event in history:
+            print(
+                f"  {event.get('state', '?'):7s} {event.get('rule', '?')} "
+                f"({event.get('series', '?')}) "
+                f"{json.dumps(event.get('detail') or {})}"
+            )
+    print(
+        f"alerts: {len(active)} active, "
+        f"{snap.get('fired_total', 0)} fired total, "
+        f"{len(snap.get('rules') or [])} rules"
+    )
+    return 0 if not active else 1
+
+
+_SPARK_CHARS = "▁▂▃▄▅▆▇█"
+
+
+def _spark(values: list) -> str:
+    """A fixed-height unicode sparkline; None gaps render as spaces."""
+    numeric = [v for v in values if v is not None]
+    if not numeric:
+        return ""
+    lo, hi = min(numeric), max(numeric)
+    span = hi - lo
+    out = []
+    for v in values:
+        if v is None:
+            out.append(" ")
+        elif span <= 0:
+            out.append(_SPARK_CHARS[0])
+        else:
+            idx = int((v - lo) / span * (len(_SPARK_CHARS) - 1) + 0.5)
+            out.append(_SPARK_CHARS[min(idx, len(_SPARK_CHARS) - 1)])
+    return "".join(out)
+
+
+def _counter_rate_points(points: list) -> list:
+    """Adjacent-pair rates over stored counter samples ([ts, value]
+    rows from a ``fn=raw`` query); a negative step (counter reset)
+    yields a None gap instead of a bogus negative rate."""
+    out = []
+    for (t0, v0), (t1, v1) in zip(points, points[1:]):
+        if t1 <= t0:
+            continue
+        step = v1 - v0
+        out.append(step / (t1 - t0) if step >= 0 else None)
+    return out
+
+
+def _top_query(sock: str, params: dict, timeout: float) -> dict | None:
+    """One ``{"op": "query"}`` round trip; None on any miss (the
+    dashboard renders what it can and dashes the rest)."""
+    try:
+        row = _scrape_row(sock, {"op": "query", **params}, timeout)
+    except (OSError, ValueError):
+        return None
+    result = row.get("query")
+    return result if isinstance(result, dict) else None
+
+
+def _top_frame(sock: str, timeout: float, window: float) -> list[str]:
+    """Render one ``top`` frame from the front socket's stats verb,
+    alerts verb, and telemetry-store queries."""
+    lines: list[str] = []
+    try:
+        stats = _scrape_row(
+            sock, {"op": "stats"}, timeout
+        ).get("stats") or {}
+    except (OSError, ValueError) as exc:
+        return [f"{PROG} top — {sock}: unreachable ({exc})"]
+    tsdb = stats.get("tsdb") or {}
+    scrape = tsdb.get("scrape") or {}
+    alerts_block = stats.get("alerts") or {}
+    lines.append(
+        f"{PROG} top — {sock}   up {stats.get('uptime_s', 0):.0f}s   "
+        f"store {tsdb.get('series', 0)} series / "
+        f"{tsdb.get('bytes_est', 0)} B   "
+        f"scrape rounds {scrape.get('rounds', 0)} "
+        f"(lag {scrape.get('last_lag_s', 0):.2f}s)   "
+        f"alerts {alerts_block.get('active', 0)} active"
+    )
+    lines.append("")
+    # -- per-worker throughput + p99 from the stored series --
+    # worker schedulers count finished work as event="completed"
+    # ("ok" is the fleet-level counter, which has no worker label)
+    rps = _top_query(
+        sock,
+        {"series": "serve_requests_total", "fn": "rate",
+         "window": window, "labels": {"event": "completed"},
+         "by": "worker"},
+        timeout,
+    )
+    p99 = _top_query(
+        sock,
+        {"series": "serve_stage_seconds", "fn": "quantile", "q": 0.99,
+         "window": window, "labels": {"stage": "total"}, "by": "worker"},
+        timeout,
+    )
+    workers = sorted(
+        set((rps or {}).get("groups") or {})
+        | set((p99 or {}).get("groups") or {})
+    )
+    rows = [["WORKER", "REQ_S", "P99_MS", f"TREND({window:.0f}s)"]]
+    for name in workers:
+        rate_row = ((rps or {}).get("groups") or {}).get(name) or {}
+        p99_row = ((p99 or {}).get("groups") or {}).get(name) or {}
+        raw = _top_query(
+            sock,
+            {"series": "serve_requests_total", "fn": "raw",
+             "window": window, "limit": 24,
+             "labels": {"event": "completed", "worker": name}},
+            timeout,
+        )
+        trend = _spark(_counter_rate_points((raw or {}).get("points") or []))
+        rate = rate_row.get("value")
+        q_value = p99_row.get("value")
+        rows.append([
+            name or "(unlabeled)",
+            "-" if rate is None else f"{rate:.1f}",
+            "-" if q_value is None else f"{q_value * 1000:.1f}",
+            trend or "-",
+        ])
+    if workers:
+        out = io.StringIO()
+        _render_table(rows, out)
+        lines.extend(out.getvalue().splitlines())
+    else:
+        lines.append("(no stored per-worker series yet)")
+    # -- per-pool rollup, when a multi-tenant router publishes the
+    # pool-labeled series (a single-pool fleet never registers them,
+    # so this section simply does not render there) --
+    pool_rps = _top_query(
+        sock,
+        {"series": "fleet_tenant_requests_total", "fn": "rate",
+         "window": window, "labels": {"event": "ok"}, "by": "pool"},
+        timeout,
+    )
+    pool_p99 = _top_query(
+        sock,
+        {"series": "fleet_tenant_request_seconds", "fn": "quantile",
+         "q": 0.99, "window": window, "by": "pool"},
+        timeout,
+    )
+    pool_names = sorted(
+        set((pool_rps or {}).get("groups") or {})
+        | set((pool_p99 or {}).get("groups") or {})
+    )
+    if pool_names:
+        pool_rows = [["POOL", "REQ_S", "P99_MS"]]
+        for name in pool_names:
+            rate_row = ((pool_rps or {}).get("groups") or {}).get(name) or {}
+            p99_row = ((pool_p99 or {}).get("groups") or {}).get(name) or {}
+            rate = rate_row.get("value")
+            q_value = p99_row.get("value")
+            pool_rows.append([
+                name or "(unlabeled)",
+                "-" if rate is None else f"{rate:.1f}",
+                "-" if q_value is None else f"{q_value * 1000:.1f}",
+            ])
+        lines.append("")
+        out = io.StringIO()
+        _render_table(pool_rows, out)
+        lines.extend(out.getvalue().splitlines())
+    # -- SLO burn --
+    objectives = (stats.get("slo") or {}).get("objectives") or {}
+    if objectives:
+        lines.append("")
+        for name, obj in sorted(objectives.items()):
+            verdict = "ok"
+            if obj.get("fast_burn_alert"):
+                verdict = "PAGE"
+            elif obj.get("slow_burn_alert"):
+                verdict = "TICKET"
+            sources = obj.get("window_sources") or {}
+            stored = sum(1 for s in sources.values() if s == "store")
+            lines.append(
+                f"slo {name}: max burn {obj.get('max_burn', 0):g} "
+                f"[{verdict}] ({stored}/{len(sources) or 0} windows "
+                f"store-backed)"
+            )
+    # -- autoscale state, when a fleet autoscaler publishes it --
+    units = _top_query(
+        sock, {"series": "autoscale_capacity_units", "fn": "latest"},
+        timeout,
+    )
+    if units is not None and units.get("value") is not None:
+        pressure = _top_query(
+            sock, {"series": "autoscale_pressure", "fn": "latest"},
+            timeout,
+        )
+        p_value = (pressure or {}).get("value")
+        lines.append(
+            f"autoscale: {units['value']:.0f} units, pressure "
+            + ("-" if p_value is None else f"{p_value:.2f}")
+        )
+    # -- active alerts --
+    try:
+        snap = _scrape_row(
+            sock, {"op": "alerts"}, timeout
+        ).get("alerts") or {}
+    except (OSError, ValueError):
+        snap = {}
+    active = snap.get("active") or []
+    if active:
+        lines.append("")
+        for alert in active:
+            lines.append(
+                f"ALERT {alert.get('rule', '?')} "
+                f"({alert.get('series', '?')}, "
+                f"{alert.get('since_s', 0):.0f}s): "
+                f"{json.dumps(alert.get('detail') or {})}"
+            )
+    return lines
+
+
+def cmd_top(args) -> int:
+    """The live fleet dashboard: per-worker req/s + p99 with stored-
+    sample sparklines, SLO burn, autoscale state, and active watchdog
+    alerts — all read from a fleet front socket's telemetry store
+    (``{"op": "stats"}`` / ``{"op": "query"}`` / ``{"op": "alerts"}``),
+    redrawn every ``--interval`` seconds."""
+    import itertools
+    import time as timelib
+
+    # a bare worker serves none of the store verbs: fail loudly once
+    # instead of rendering an empty dashboard forever
+    try:
+        probe = _scrape_row(
+            args.socket, {"op": "query", "list": True}, args.timeout
+        )
+    except (OSError, ValueError) as exc:
+        print(
+            f"error: cannot scrape {args.socket!r}: {exc}",
+            file=sys.stderr,
+        )
+        return 1
+    if "query" not in probe:
+        print(
+            f"error: no query verb at {args.socket!r} (need a fleet "
+            f"front socket): {probe.get('error', probe)}",
+            file=sys.stderr,
+        )
+        return 1
+    window = max(30.0, 4.0 * args.interval)
+    for i in itertools.count():
+        if args.iterations is not None and i >= args.iterations:
+            return 0
+        lines = _top_frame(args.socket, args.timeout, window)
+        if args.interval > 0 and sys.stdout.isatty():
+            sys.stdout.write("\x1b[2J\x1b[H")
+        sys.stdout.write("\n".join(lines) + "\n")
+        sys.stdout.flush()
+        if args.interval <= 0:
+            return 0
+        try:
+            timelib.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+
+
+_NOT_PORTED = (
+    "the tenancy and jobs tiers (tenancy/, jobs/) are not ported yet"
+)
+
+
+def cmd_fleet(args) -> int:
+    """The fleet tier: supervise N of the port's serve worker processes
+    (restart on crash/wedge with backoff, drain on rolling restart)
+    behind one health-checked, load-balanced, hedging front socket
+    (fleet/supervisor.py + fleet/router.py) — optionally fronted by
+    the HTTP/1.1 keep-alive edge (--http) and federated across hosts
+    over TCP (--federate).  Every worker runs on the card unless
+    --device cpu."""
+    for flag, value in (
+        ("--selftest-jobs", args.selftest_jobs),
+        ("--selftest-tenant", args.selftest_tenant),
+        ("--tenants", args.tenants),
+        ("--jobs-dir", args.jobs_dir),
+    ):
+        if value:
+            print(f"error: {flag}: {_NOT_PORTED}", file=sys.stderr)
+            return 1
+    if args.selftest:
+        from licensee_tpu_torch.fleet.selftest import selftest
+
+        return selftest(stub=args.stub, device=args.device)
+    if args.selftest_reload:
+        from licensee_tpu_torch.fleet.selftest import selftest_reload
+
+        return selftest_reload(stub=args.stub, device=args.device)
+    if args.selftest_tcp:
+        from licensee_tpu_torch.fleet.selftest import selftest_tcp
+
+        return selftest_tcp(stub=args.stub, device=args.device)
+    if not args.socket and not args.http:
+        print("error: need --socket PATH|HOST:PORT (the client-facing "
+              "front door) and/or --http HOST:PORT, or --selftest",
+              file=sys.stderr)
+        return 1
+    hedge_ms = args.hedge_ms
+    if hedge_ms not in (None, "off", "auto"):
+        try:
+            hedge_ms = float(hedge_ms)
+            if not (hedge_ms >= 0):
+                raise ValueError
+        except ValueError:
+            print(
+                f"error: bad --hedge-ms {args.hedge_ms!r} "
+                "(want a number, 'auto', or 'off')",
+                file=sys.stderr,
+            )
+            return 1
+    from licensee_tpu_torch.fleet.router import FrontServer, Router
+    from licensee_tpu_torch.fleet.supervisor import Supervisor
+
+    supervisor = None
+    if args.federate:
+        # the cross-host FRONT tier: every backend is another fleet's
+        # front door (usually host:port); no local workers to spawn
+        hosts = {
+            f"host{i}": target.strip()
+            for i, target in enumerate(args.federate.split(","))
+            if target.strip()
+        }
+        if not hosts:
+            print("error: --federate needs at least one target",
+                  file=sys.stderr)
+            return 1
+        router = Router(
+            hosts,
+            hedge_ms=None if hedge_ms == "off" else hedge_ms,
+            probe_interval_s=args.probe_interval_ms / 1000.0,
+            pool_per_worker=args.pool_per_worker,
+            merge_label="host",
+        )
+        print(
+            f"fleet: federating {len(hosts)} host(s): "
+            f"{', '.join(hosts.values())}",
+            file=sys.stderr,
+        )
+    else:
+        socket_dir = args.socket_dir or tempfile.mkdtemp(
+            prefix="licensee-fleet-"
+        )
+        os.makedirs(socket_dir, exist_ok=True)
+        serve_args: list[str] = []
+        for flag, value in (
+            ("--mode", args.mode),
+            ("--method", args.method),
+            ("--max-batch", args.max_batch),
+            ("--max-delay-ms", args.max_delay_ms),
+            ("--queue-depth", args.queue_depth),
+            ("--cache-entries", args.cache_entries),
+            ("--cache-bytes", args.cache_bytes),
+            ("--trace-sample", args.trace_sample),
+            ("--corpus", args.corpus),
+            ("--device", args.device),
+        ):
+            if value is not None:
+                serve_args += [flag, str(value)]
+        workers = {
+            f"w{i}": os.path.join(socket_dir, f"w{i}.sock")
+            for i in range(args.workers)
+        }
+        supervisor = Supervisor(
+            workers,
+            chips_per_worker=args.chips_per_worker,
+            serve_args=tuple(serve_args),
+            backoff_base_s=args.restart_backoff_ms / 1000.0,
+            probe_interval_s=args.probe_interval_ms / 1000.0,
+        )
+        router = Router(
+            workers,
+            supervisor=supervisor,
+            hedge_ms=None if hedge_ms == "off" else hedge_ms,
+            probe_interval_s=args.probe_interval_ms / 1000.0,
+            pool_per_worker=args.pool_per_worker,
+        )
+        print(
+            f"fleet: {args.workers} workers under {socket_dir}, "
+            f"front door {args.socket or args.http}",
+            file=sys.stderr,
+        )
+    from licensee_tpu_torch.serve.server import SocketInUseError
+
+    if supervisor is not None:
+        supervisor.start()
+        if not supervisor.wait_healthy(args.boot_timeout):
+            print(
+                f"error: workers failed to boot: {supervisor.status()}",
+                file=sys.stderr,
+            )
+            supervisor.stop()
+            return 1
+    router.start()
+    edge_tokens = None
+    if args.edge_token:
+        edge_tokens = {}
+        for spec in args.edge_token:
+            name, sep, tok = spec.partition("=")
+            if sep and name and tok:
+                edge_tokens[tok] = name
+            else:
+                edge_tokens[spec] = spec
+    server = edge = None
+    try:
+        if args.socket:
+            server = FrontServer(args.socket, router)
+        if args.http:
+            from licensee_tpu_torch.fleet.http_edge import HttpEdgeServer
+
+            # no jobs executor and no tenancy onboarder: /jobs* and
+            # POST /corpus answer the edge's own 503 bodies
+            edge = HttpEdgeServer(
+                args.http, router,
+                tokens=edge_tokens,
+                rate_per_client=args.edge_rate,
+                burst=args.edge_burst,
+            )
+            print(
+                f"fleet: HTTP edge on {args.http}"
+                f"{' (port ' + str(edge.bound_port) + ')' if edge.bound_port else ''}",
+                file=sys.stderr,
+            )
+    except (SocketInUseError, OSError) as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        for srv in (server, edge):
+            if srv is not None:
+                srv.server_close()
+        router.close()
+        if supervisor is not None:
+            supervisor.stop()
+        return 1
+    # long-lived serving process: the boot-time heap (imports, corpus,
+    # supervisor state) never becomes garbage, but untuned gen2 GC
+    # re-scans it forever — on the router's event loop that is a
+    # ~100 ms stall per pass at saturation, pure tail latency.  Freeze
+    # the boot heap out of collection.
+    import gc
+
+    gc.collect()
+    gc.freeze()
+    import signal as signallib
+    import threading
+
+    primary = server if server is not None else edge
+    secondary = edge if server is not None else None
+
+    def _term(*_):
+        for srv in (primary, secondary):
+            if srv is not None:
+                threading.Thread(target=srv.shutdown, daemon=True).start()
+
+    try:
+        signallib.signal(signallib.SIGTERM, _term)
+    except ValueError:
+        pass
+    secondary_thread = None
+    if secondary is not None:
+        # both doors share the router's ONE event loop; each facade
+        # just parks a waiter thread until shutdown
+        secondary_thread = threading.Thread(
+            target=secondary.serve_forever,
+            kwargs={"poll_interval": 0.2}, daemon=True,
+        )
+        secondary_thread.start()
+    try:
+        primary.serve_forever(poll_interval=0.2)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if secondary is not None:
+            secondary.shutdown()
+            secondary.server_close()
+        if secondary_thread is not None:
+            secondary_thread.join(timeout=5.0)
+        primary.server_close()
+        if args.socket and server is not None and server.kind == "unix":
+            try:
+                os.unlink(args.socket)
+            except OSError:
+                pass
+        router.close()
+        if supervisor is not None:
+            supervisor.stop()
+        if args.stats:
+            print(json.dumps(router.stats()), file=sys.stderr)
+    return 0
+
+
 def bounded(kind, lo):
     """An argparse type: ``kind`` no smaller than ``lo`` (NaN refused),
     so a typo fails before a large manifest loads."""
@@ -1169,6 +2106,10 @@ def bounded(kind, lo):
     # argparse embeds the callable's name in "invalid ... value"
     parse.__name__ = f">={lo} {kind.__name__}"
     return parse
+
+
+def nonneg(kind):
+    return bounded(kind, 0)
 
 
 PROG = "licensee-tpu-torch"
@@ -1185,6 +2126,12 @@ COMMANDS = (
     ("batch-detect", "Classify a manifest of files on the GPU batch path"),
     ("corpus-build", "Compile a corpus into a fingerprinted artifact"),
     ("serve", "Run the online micro-batching classification worker"),
+    ("stats", "Scrape serve workers' metrics/traces (obs exporters)"),
+    ("traces", "Render assembled cross-process trace trees (fleet)"),
+    ("slo", "Evaluate SLO burn rates from a worker/fleet scrape"),
+    ("top", "Live fleet dashboard from the retained telemetry store"),
+    ("alerts", "Show the anomaly watchdog's active alerts and history"),
+    ("fleet", "Supervise N serve workers behind one routed socket"),
 )
 _COMMAND_HELP = dict(COMMANDS)
 
@@ -1690,6 +2637,378 @@ def build_parser() -> argparse.ArgumentParser:
         help="Where the scorers run (default cuda; errors if no GPU)",
     )
     serve.set_defaults(func=cmd_serve)
+
+    stats = sub.add_parser("stats", help=_COMMAND_HELP["stats"])
+    stats.add_argument(
+        "--socket", action="append", default=None,
+        metavar="PATH|HOST:PORT",
+        help=(
+            "A serve worker's Unix socket — or host:port for a TCP "
+            "worker/front — to scrape; repeat the flag for a fleet — "
+            "several targets print ONE merged table (json) or one "
+            "worker-labeled merged exposition (prometheus)"
+        ),
+    )
+    stats.add_argument(
+        "--format", default="json", choices=["json", "prometheus"],
+        help=(
+            "Output: 'json' (the stats verb snapshot) or 'prometheus' "
+            "(text exposition — pipe into a node_exporter textfile or "
+            "curl-style scrape job)"
+        ),
+    )
+    stats.add_argument(
+        "--watch", type=nonneg(float), default=None, metavar="SECS",
+        help=(
+            "Re-scrape and redraw the merged table every SECS seconds "
+            "(Ctrl-C stops) — the live operator view of a fleet; REQ_S "
+            "reads the target's telemetry store when it serves the "
+            "query verb (honest from the first frame), else the "
+            "completed-counter delta per second"
+        ),
+    )
+    stats.add_argument(
+        "--watch-iterations", type=nonneg(int), default=None,
+        help=argparse.SUPPRESS,  # bound the --watch loop (tests/CI)
+    )
+    stats.add_argument(
+        "--trace", type=nonneg(int), default=None, metavar="N",
+        help="Print the last N retained traces (JSONL) instead of metrics",
+    )
+    stats.add_argument(
+        "--timeout", type=nonneg(float), default=10.0, metavar="SECS",
+        help="Socket connect/read timeout (default 10)",
+    )
+    stats.add_argument(
+        "--selftest", action="store_true",
+        help=(
+            "Exercise the obs layer in-process (registry, histogram "
+            "math, exposition grammar, tracer sampling + slow "
+            "exemplars, native-profile delta scrape) and exit 0/1 — "
+            "the CI smoke"
+        ),
+    )
+    stats.set_defaults(func=cmd_stats)
+
+    traces = sub.add_parser("traces", help=_COMMAND_HELP["traces"])
+    traces.add_argument(
+        "--socket", required=True, metavar="PATH|HOST:PORT",
+        help=(
+            "A fleet FRONT door (licensee-tpu-torch fleet --socket TARGET; "
+            "host:port for a TCP front): the router's collector pulls "
+            "every worker tail and answers {'op': 'traces'} with "
+            "assembled trees"
+        ),
+    )
+    traces.add_argument(
+        "--id", default=None, metavar="HEX",
+        help="Only traces whose 16-hex ID starts with this prefix",
+    )
+    traces.add_argument(
+        "--slowest", type=bounded(int, 1), default=None, metavar="N",
+        help="The N slowest assembled traces (default: 20 slowest)",
+    )
+    traces.add_argument(
+        "--n", type=bounded(int, 1), default=20, metavar="N",
+        help="How many trees to fetch without --slowest (default 20)",
+    )
+    traces.add_argument(
+        "--json", action="store_true",
+        help="One JSON tree per line instead of the rendered view",
+    )
+    traces.add_argument(
+        "--timeout", type=nonneg(float), default=10.0, metavar="SECS",
+        help="Socket connect/read timeout (default 10)",
+    )
+    traces.set_defaults(func=cmd_traces)
+
+    slo = sub.add_parser("slo", help=_COMMAND_HELP["slo"])
+    slo.add_argument(
+        "--socket", required=True, metavar="PATH|HOST:PORT",
+        help=(
+            "A serve worker's socket (its own objectives) or a fleet "
+            "front door — host:port for TCP — (the router's "
+            "fleet-level objectives)"
+        ),
+    )
+    slo.add_argument(
+        "--json", action="store_true",
+        help="Print the raw slo stats block instead of the table",
+    )
+    slo.add_argument(
+        "--timeout", type=nonneg(float), default=10.0, metavar="SECS",
+        help="Socket connect/read timeout (default 10)",
+    )
+    slo.set_defaults(func=cmd_slo)
+
+    top = sub.add_parser("top", help=_COMMAND_HELP["top"])
+    top.add_argument(
+        "--socket", required=True, metavar="PATH|HOST:PORT",
+        help=(
+            "A fleet FRONT door (its router owns the telemetry store "
+            "the dashboard reads); host:port for a TCP front"
+        ),
+    )
+    top.add_argument(
+        "--interval", type=nonneg(float), default=2.0, metavar="SECS",
+        help=(
+            "Redraw cadence (default 2; 0 prints one frame and exits)"
+        ),
+    )
+    top.add_argument(
+        "--iterations", type=nonneg(int), default=None,
+        help=argparse.SUPPRESS,  # bound the redraw loop (tests/CI)
+    )
+    top.add_argument(
+        "--timeout", type=nonneg(float), default=10.0, metavar="SECS",
+        help="Socket connect/read timeout (default 10)",
+    )
+    top.set_defaults(func=cmd_top)
+
+    alerts = sub.add_parser("alerts", help=_COMMAND_HELP["alerts"])
+    alerts.add_argument(
+        "--socket", required=True, metavar="PATH|HOST:PORT",
+        help=(
+            "A fleet FRONT door (the router's watchdog owns the alert "
+            "ledger); host:port for a TCP front"
+        ),
+    )
+    alerts.add_argument(
+        "--history", type=nonneg(int), default=0, metavar="N",
+        help="Also print the last N fire/clear transitions",
+    )
+    alerts.add_argument(
+        "--json", action="store_true",
+        help="Print the raw watchdog snapshot instead of the table",
+    )
+    alerts.add_argument(
+        "--timeout", type=nonneg(float), default=10.0, metavar="SECS",
+        help="Socket connect/read timeout (default 10)",
+    )
+    alerts.set_defaults(func=cmd_alerts)
+
+    fleet = sub.add_parser("fleet", help=_COMMAND_HELP["fleet"])
+    fleet.add_argument(
+        "--socket", default=None, metavar="PATH|HOST:PORT",
+        help="The client-facing front socket (JSONL, same protocol "
+             "as one worker — clients cannot tell the difference).  "
+             "host:port binds the front door on TCP",
+    )
+    fleet.add_argument(
+        "--http", default=None, metavar="HOST:PORT",
+        help=(
+            "Also serve the HTTP/1.1 keep-alive edge on this TCP "
+            "address (POST /classify with a JSON content-row body, "
+            "GET /healthz, GET /metrics), on the router's own event "
+            "loop — queue_full maps to 429 + Retry-After, router "
+            "shutdown to 503"
+        ),
+    )
+    fleet.add_argument(
+        "--edge-token", action="append", default=None,
+        metavar="NAME=TOKEN",
+        help=(
+            "HTTP edge bearer token (repeatable): requests must carry "
+            "'Authorization: Bearer TOKEN' and are rate-limited and "
+            "fair-queued per NAME.  A bare TOKEN names itself.  "
+            "Default: auth off (clients keyed by peer address)"
+        ),
+    )
+    fleet.add_argument(
+        "--edge-rate", type=bounded(float, 0.001), default=1000.0,
+        metavar="RPS",
+        help="HTTP edge per-client token-bucket rate (default 1000/s)",
+    )
+    fleet.add_argument(
+        "--edge-burst", type=bounded(float, 1), default=None,
+        metavar="N",
+        help="HTTP edge per-client burst depth (default: the rate)",
+    )
+    fleet.add_argument(
+        "--federate", default=None, metavar="TARGET,TARGET,...",
+        help=(
+            "Run as the cross-host FRONT tier: no local workers — "
+            "each comma-separated target (host:port or socket path) "
+            "is another fleet's front door, dispatched least-loaded "
+            "with failover/hedging across hosts and scraped into a "
+            "host-labeled merged exposition"
+        ),
+    )
+    fleet.add_argument(
+        "--workers", type=bounded(int, 1), default=2, metavar="N",
+        help="Worker processes to supervise (default 2)",
+    )
+    fleet.add_argument(
+        "--chips-per-worker", type=bounded(int, 1), default=None,
+        metavar="K",
+        help=(
+            "Give worker i chips [i*K, (i+1)*K) via the "
+            "LICENSEE_TPU_VISIBLE_CHIPS env contract "
+            "(parallel/distributed.py apply_visible_chips); default: "
+            "workers share default device visibility"
+        ),
+    )
+    fleet.add_argument(
+        "--socket-dir", default=None, metavar="DIR",
+        help="Directory for per-worker sockets (default: a tmpdir)",
+    )
+    fleet.add_argument(
+        "--hedge-ms", default="off", metavar="MS|auto|off",
+        help=(
+            "Hedged requests: after MS milliseconds without an answer, "
+            "duplicate the request to a second worker and take the "
+            "first answer ('auto' derives the delay from the live p95; "
+            "default off).  A duplicate the twin has cached or in "
+            "flight coalesces by content hash; otherwise the extra "
+            "device load is bounded by the hedge rate (~5% at auto)"
+        ),
+    )
+    fleet.add_argument(
+        "--pool-per-worker", type=bounded(int, 1), default=4,
+        metavar="N",
+        help=(
+            "Pipelined backend connections the router may open per "
+            "worker (default 4).  Many requests ride each connection "
+            "at once; more connections spread head-of-line blocking, "
+            "at the cost of more worker session threads"
+        ),
+    )
+    fleet.add_argument(
+        "--probe-interval-ms", type=bounded(float, 1), default=250.0,
+        metavar="MS",
+        help="Health-probe cadence for supervisor and router "
+             "(default 250)",
+    )
+    fleet.add_argument(
+        "--restart-backoff-ms", type=bounded(float, 1), default=250.0,
+        metavar="MS",
+        help=(
+            "Base restart backoff: a crashed worker respawns after "
+            "MS * 2^restarts ms, capped at 10s; the counter resets "
+            "after 10s of stable health (default 250)"
+        ),
+    )
+    fleet.add_argument(
+        "--boot-timeout", type=bounded(float, 1), default=300.0,
+        metavar="SECS",
+        help="How long to wait for every worker's first health probe "
+             "(default 300)",
+    )
+    # per-worker serve knobs, forwarded verbatim to each worker argv
+    fleet.add_argument("--mode", default=None,
+                       choices=["license", "readme", "package", "auto"],
+                       help="Forwarded to each worker (serve --mode)")
+    fleet.add_argument("--corpus", default=None,
+                       help="Forwarded to each worker (serve --corpus)")
+    fleet.add_argument(
+        "--method", default=None,
+        choices=list(METHODS),
+        help="Forwarded to each worker (serve --method)",
+    )
+    fleet.add_argument("--max-batch", type=bounded(int, 1), default=None,
+                       help="Forwarded to each worker (serve --max-batch)")
+    fleet.add_argument(
+        "--max-delay-ms", type=nonneg(float), default=None,
+        help="Forwarded to each worker (serve --max-delay-ms)",
+    )
+    fleet.add_argument(
+        "--queue-depth", type=bounded(int, 1), default=None,
+        help="Forwarded to each worker (serve --queue-depth)",
+    )
+    fleet.add_argument(
+        "--cache-entries", type=nonneg(int), default=None,
+        help="Forwarded to each worker (serve --cache-entries)",
+    )
+    fleet.add_argument(
+        "--cache-bytes", type=nonneg(int), default=None,
+        help="Forwarded to each worker (serve --cache-bytes)",
+    )
+    fleet.add_argument(
+        "--trace-sample", type=nonneg(float), default=None,
+        help="Forwarded to each worker (serve --trace-sample)",
+    )
+    fleet.add_argument(
+        "--stats", action="store_true",
+        help="Dump the router's fleet stats JSON to stderr at shutdown",
+    )
+    fleet.add_argument(
+        "--selftest", action="store_true",
+        help=(
+            "Boot a 2-worker fleet on --device, SIGKILL one worker under live "
+            "client traffic, and assert zero client-visible errors, "
+            "restart-within-backoff, trace propagation, merged "
+            "exposition, and clean drain; exit 0/1 — the CI smoke"
+        ),
+    )
+    fleet.add_argument(
+        "--selftest-reload", action="store_true",
+        help=(
+            "Run the fault-drilled zero-downtime upgrade selftest: a "
+            "live 2-worker fleet under continuous traffic completes "
+            ">=3 rolling corpus reloads interleaved with corrupt-"
+            "artifact, refused-validation (rollback), and SIGKILL-"
+            "mid-swap faults, with zero client-visible errors; "
+            "exit 0/1"
+        ),
+    )
+    fleet.add_argument(
+        "--selftest-tcp", action="store_true",
+        help=(
+            "Run the cross-host federation selftest: 2 supervisor "
+            "domains over loopback TCP behind one federated front "
+            "router + the HTTP edge — an open-loop HTTP burst, then "
+            "SIGKILL of one host's worker mid-stream with zero "
+            "client-visible errors (cross-host failover), auth/"
+            "slowloris drills, and a host+worker-labeled merged "
+            "exposition; exit 0/1"
+        ),
+    )
+    fleet.add_argument(
+        "--selftest-jobs", action="store_true",
+        help=(
+            "Not ported yet: exits 1 (the tenancy and jobs tiers "
+            "come with a later slice)"
+        ),
+    )
+    fleet.add_argument(
+        "--selftest-tenant", action="store_true",
+        help=(
+            "Not ported yet: exits 1 (the tenancy and jobs tiers "
+            "come with a later slice)"
+        ),
+    )
+    fleet.add_argument(
+        "--tenants", default=None, metavar="FILE",
+        help=(
+            "Not ported yet: exits 1 (the tenancy and jobs tiers "
+            "come with a later slice)"
+        ),
+    )
+    fleet.add_argument(
+        "--jobs-dir", default=None, metavar="DIR",
+        help=(
+            "Not ported yet: exits 1 (the tenancy and jobs tiers "
+            "come with a later slice)"
+        ),
+    )
+    fleet.add_argument(
+        "--stub", action="store_true",
+        help=(
+            "With --selftest/--selftest-reload/--selftest-tcp/"
+            "--selftest-jobs/--selftest-tenant: use protocol-faithful "
+            "stub workers (no device path) — seconds instead of a torch "
+            "boot per worker"
+        ),
+    )
+    fleet.add_argument(
+        "--device", default="cuda", choices=["cuda", "cpu"],
+        help=(
+            "Forwarded to each worker (serve --device) and to the real-"
+            "worker selftests (default cuda; a worker without a GPU "
+            "exits 1 and counts as a crash)"
+        ),
+    )
+    fleet.set_defaults(func=cmd_fleet)
 
     if set(sub.choices) != {name for name, _ in COMMANDS}:
         raise AssertionError(

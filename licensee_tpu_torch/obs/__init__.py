@@ -2,10 +2,6 @@
 exporters, shared by the online serve path, the offline batch path, and
 the native/device layers.
 
-The port's copy of `licensee_tpu/obs/__init__.py`, without the trace
-collector, the anomaly watchdog and the metrics store, which belong to
-the fleet tier (ROADMAP A).
-
 One ``Observability`` bundle holds a :class:`MetricsRegistry` and a
 :class:`Tracer`; every subsystem reports through it and the exporters
 (Prometheus text exposition, trace tail) read from it.  See
@@ -30,12 +26,29 @@ from licensee_tpu_torch.obs.registry import (
     MetricsRegistry,
     get_registry,
 )
+from licensee_tpu_torch.obs.collect import (
+    TraceCollector,
+    assemble_rows,
+    assemble_trace,
+    render_tree,
+)
 from licensee_tpu_torch.obs.flight import (
     FlightRecorder,
     flight_path_for_socket,
     load_flight_dump,
 )
 from licensee_tpu_torch.obs.pipeline import PipelineLanes
+from licensee_tpu_torch.obs.anomaly import (
+    AnomalyWatchdog,
+    FlatlineRule,
+    RateJumpRule,
+    SaturationRule,
+)
+from licensee_tpu_torch.obs.tsdb import (
+    QueryError,
+    ScrapeScheduler,
+    TsdbStore,
+)
 from licensee_tpu_torch.obs.slo import (
     SLOEngine,
     pool_objectives,
@@ -54,9 +67,12 @@ __all__ = [
     "Trace", "Tracer", "NullTracer", "get_tracer",
     "render_prometheus", "check_exposition", "merge_expositions",
     "NativeProfileSource", "PipelineLanes",
+    "TraceCollector", "assemble_rows", "assemble_trace", "render_tree",
     "FlightRecorder", "flight_path_for_socket", "load_flight_dump",
     "SLOEngine", "serve_objectives", "router_objectives",
     "pool_objectives",
+    "TsdbStore", "ScrapeScheduler", "QueryError",
+    "AnomalyWatchdog", "RateJumpRule", "FlatlineRule", "SaturationRule",
     "DEFAULT_LATENCY_BUCKETS", "Observability",
 ]
 

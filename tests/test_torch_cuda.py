@@ -891,3 +891,36 @@ def test_stripe_child_without_a_card_exits_nonzero(card, tmp_path):
         runner.run()
     assert all(h.exit_codes and h.exit_codes[0] != 0 for h in runner.handles)
     assert not out.exists()
+
+
+@pytest.fixture(scope="module")
+def card_fleet():
+    """chip_smoke.py's phase 11 at its tiny size on the card: a 2-worker
+    `fleet --socket --http` whose every run's rows it holds against a
+    device='cpu' batcher's, with a worker SIGKILLed mid-run and a
+    rolling reload."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the machine with the card)")
+    import chip_smoke
+
+    return chip_smoke.phase_fleet(np, torch, seed=0, device="cuda",
+                                  scale=chip_smoke.FleetScale.tiny())
+
+
+def test_fleet_on_the_card_answers_as_the_cpu_batcher(card_fleet):
+    assert [r["run"] for r in card_fleet["timing"]["runs"]] == [
+        "front T=47", "edge T=47", "front T=608", "edge T=608"]
+    assert card_fleet["timing"]["roll"]["rows_new"] > 0
+
+
+def test_fleet_workers_export_their_k1_launches(card_fleet):
+    workers = card_fleet["timing"]["workers"]
+    assert set(workers) == {"w0", "w1"}
+    assert all(w["k1_launches"] > 0 for w in workers.values())
+    assert all(n > 0 for n in card_fleet["launches"].values())
+
+
+def test_fleet_sigkilled_worker_comes_back_on_the_card(card_fleet):
+    kill = card_fleet["timing"]["kill"]
+    assert kill["restarts"] == 1
+    assert card_fleet["timing"]["victim_k1_launches"] > 0

@@ -268,12 +268,15 @@ def test_help_matches_jax():
     jax_lines = {line.split()[1]: line for line in jax_out.splitlines()[1:]}
     port_lines = {line.split()[1]: line for line in out.splitlines()[1:]}
     assert {"detect", "diff", "license-path", "version", "help",
-            "batch-detect", "corpus-build", "serve"} == set(port_lines)
+            "batch-detect", "corpus-build", "serve", "stats", "traces",
+            "slo", "top", "alerts", "fleet"} == set(port_lines)
     for verb in ("detect", "diff", "license-path", "version", "help",
-                 "corpus-build", "serve"):
+                 "corpus-build", "serve", "stats", "traces", "slo", "top",
+                 "alerts", "fleet"):
         assert port_lines[verb].replace("licensee-tpu-torch",
                                         "licensee-tpu") == jax_lines[verb]
-    for verb in ("detect", "diff", "license-path", "version", "help"):
+    for verb in ("detect", "diff", "license-path", "version", "help",
+                 "stats", "traces", "slo", "top", "alerts"):
         want = run(jax_main, ["help", verb])
         got = run(port_main, ["help", verb])
         assert got[0] == want[0] == 0

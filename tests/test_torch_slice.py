@@ -171,7 +171,9 @@ def test_port_imports_no_jax_yaml_or_jax_package():
     with the port's native pipeline and scanners loaded, `detect`'s
     chain run (rules, fields, the matchers' lazy imports) and a `serve`
     session run (the selftest on the CPU: the scheduler's, the reload's
-    and the diff verb's lazy imports): no JAX, no PyYAML, nothing of
+    and the diff verb's lazy imports), and `fleet --selftest --stub` and
+    `stats --selftest` run through the CLI (the fleet's, the edge's and
+    the telemetry plane's lazy imports): no JAX, no PyYAML, nothing of
     `licensee_tpu`, and no library built inside it."""
     code = (
         "import pkgutil, importlib, sys\n"
@@ -235,11 +237,25 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "'licensee_tpu_torch.serve.server', "
         "'licensee_tpu_torch.fleet', "
         "'licensee_tpu_torch.fleet.wire', "
+        "'licensee_tpu_torch.fleet.supervisor', "
+        "'licensee_tpu_torch.fleet.faults', "
+        "'licensee_tpu_torch.fleet.router', "
+        "'licensee_tpu_torch.fleet.http_edge', "
+        "'licensee_tpu_torch.fleet.selftest', "
+        "'licensee_tpu_torch.obs.tsdb', "
+        "'licensee_tpu_torch.obs.anomaly', "
+        "'licensee_tpu_torch.obs.collect', "
+        "'licensee_tpu_torch.obs.selftest', "
         "'licensee_tpu_torch.normalize.worddiff'}\n"
         "from licensee_tpu_torch.serve import MicroBatcher, selftest\n"
         "assert selftest(verbose=False, device='cpu') == 0\n"
+        "from licensee_tpu_torch.cli.main import main\n"
+        "assert main(['fleet', '--selftest', '--stub']) == 0\n"
+        "assert main(['stats', '--selftest']) == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'yaml', 'licensee_tpu'))\n"
         "print(len(names), bad, sorted(new - set(names)))\n"
-        "sys.exit(1 if bad or len(names) < 69 or new - set(names) else 0)\n"
+        "sys.exit(1 if bad or len(names) < 85 or new - set(names) else 0)\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                             capture_output=True, text=True, timeout=120)
