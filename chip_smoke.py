@@ -66,12 +66,12 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    over the T=608 manifest of phase 4.  Each output must be
    byte-identical to --device cpu and to --pipeline-depth 1 --workers 1
    (for the vendored run, over its first 12,001 rows).
-   The vendored run's first 12,001 rows are also run with
+   The vendored run's first 4,001 rows are also run with
    --featurize-procs (one spawned worker process per CPU) and must give
    the same bytes; its output is
    then cut mid-line and resumed: the sha256 must equal the full run's
-   and the sidecar must not change.  A last run under torch.profiler
-   gives the card's busy and idle share.
+   and the sidecar must not change.  A last run over the first 12,001
+   rows under torch.profiler gives the card's busy and idle share.
    Every run prints rows/s, its stage seconds, the pipeline lanes'
    occupancy and the dispatch set-up split;
 6. modes: the rest of `batch-detect`'s verdict surface at default flags
@@ -117,7 +117,8 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    session over a mixed crawl manifest, each with repeats; over a Unix
    socket (`UnixServer`, `serve_unix`'s server, in a thread) 64
    closed-loop clients in a child process, each keeping 8 requests in
-   flight, send 10,000 requests, mostly distinct Dice-bound variants
+   flight, send 5,000 requests (2,500 at T=608), mostly distinct
+   Dice-bound variants
    (a test of K1 at every flush size up to 256, not a users' traffic
    mix), and one client sends one request at a time (every flush a
    deadline flush at B=1), at T=47 and with the 608-template corpus;
@@ -159,7 +160,7 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    --device cpu, --pipeline-depth 1 --workers 1 and phase 7's local run
    (entry paths aside; the two twins over the first 600 entries), and a
    remote git repository refused; --stripes
-   1, 2 and 4 over the first 25,001 rows of phase 5's manifest, each
+   1, 2 and 4 over the first 10,001 rows of phase 5's manifest, each
    merged output byte-identical to phase 5's first rows, with --stats-file (the merged stats
    must reconcile), --prom-file (each exposition must pass
    `check_exposition`, each stripe must have launched K1) and
@@ -170,21 +171,21 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    archive republished between a cut and the resume, which must be
    refused; and `batch-detect --selftest`, `--selftest-remote` and
    `--selftest-autoscale` as child processes on the card, beside the
-   untimed drills.  A `stripes
+   whole phase.  A `stripes
    timing:` line gives each striped run's rows/s, summed read seconds
    and the card's utilization (nvidia-smi) beside its name and power
    limit;
 11. fleet: `fleet --workers 2 --socket FRONT --http HOST:PORT` through
    the port's CLI, its two `serve` workers on the card at the CLI's
-   defaults: phase 9's 10,000 T=47 variants from 64 front clients, 8 in
+   defaults: phase 9's 5,000 T=47 variants from 64 front clients, 8 in
    flight each, then 4,000 of them from 16 keep-alive clients through
-   the HTTP edge; worker w0 SIGKILLed a quarter into 3,000 more (zero
+   the HTTP edge; worker w0 SIGKILLed a quarter into 2,000 more (zero
    client errors, one restart counted with its signal, the respawned
    worker answering and launching K1 again); a rolling reload through
    the front door to a `corpus-build` artifact of the T=608 directory a
-   quarter into 3,000 more (each row under the old or the new corpus
+   quarter into 2,000 more (each row under the old or the new corpus
    and equal to the CPU verdict under it, both workers' fingerprints
-   moved); phase 9's 5,000 T=608 variants from 64 front clients and
+   moved); phase 9's 2,500 T=608 variants from 64 front clients and
    2,000 through the edge; 16 open-loop edge clients
    (`faults.open_loop_http_client`).  Every row equals a device='cpu'
    batcher's (phase 9's references), trace ID, cache flag and worker
@@ -202,15 +203,46 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    front and the edge at both widths, each worker's flushes and K1
    launches, restarts, seconds to boot the workers, to respawn one and
    to roll, the SLO burns, nvidia-smi's utilization and per-process
-   memory, beside the card's name and power limit.
+   memory, beside the card's name and power limit;
+12. tenancy and jobs: `fleet --tenants REG --workers 1 --socket FRONT
+   --http HOST:PORT --jobs-dir DIR --jobs-concurrency 2` through the
+   port's CLI on the card, tenant acme's pool on the vendored corpus
+   (T=47), tenant beta's on phase 5's synthetic SPDX directory (T=608):
+   2,000 of phase 9's variants a tenant, tagged with the tenant's name
+   under its bearer token through the edge from 8 keep-alive clients,
+   each row equal to phase 9's device='cpu' reference, answered by the
+   tenant's own worker and stamping its fingerprint (zero cross-tenant
+   rows); acme's `POST /corpus` of a `corpus-build` artifact of the
+   vendored SPDX mirror a quarter into 1,000 of beta's requests (beta's
+   rows unaffected), then 1,000 of acme's under the new fingerprint
+   against the CPU verdicts under it, and the registry file naming the
+   rolled corpus; two jobs through the `jobs` verb: (a) phase 7's
+   container manifest with `stripes: 2` at default options (K1 at
+   T=47) and (b) phase 5's T=608 manifest with `{"corpus": DIR,
+   "method": "matmul"}` (K2), each job's results and `.containers.jsonl`
+   fetched by the verb byte-identical to the same spec on a
+   `JobExecutor(device="cpu")` (job (a) also to phase 7's `--mode
+   license` run), its stripes' merged exposition showing the kernel its
+   options route to and no other; the pools' workers with no fallback
+   and K1 alone; and beside them `fleet --selftest-tenant` and
+   `--selftest-jobs` with real workers and stripes on the card and
+   their `--stub` twins as child processes, and the native featurizer's
+   parity selftest (`native/selftest.py`; its ``SKIP``, no native
+   library, is a failure).  The fleet must stop on SIGTERM with exit 0.  A `jobs timing:` line gives each job's rows/s
+   over submit to completed, the jobs drill's resume seconds, the roll's
+   seconds, each tenant run's requests/s and p50/p99 and each selftest's
+   seconds, beside the card's name and power limit.
 
 A row's ``launches`` counts its kernel over its width's card runs of
-phases 4 to 8, 10 and 11, each run between a reset of the counts and a
-read (the B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows: phase
-9's runs at their width, the reload's at T=47, and phase 11's workers'
-gauges, read before the kill, before the roll (T=47) and at the end;
-K5's rows: phase 10's `--mesh 1,1` runs); the planes kernel
-(`score_pairs_fused`) launches on no main path.
+phases 4 to 8 and 10 to 12, each run between a reset of the counts and
+a read (the B=1 row at T=47: phase 8's DiceXLA run; the B=256 rows:
+phase 9's runs at their width, the reload's at T=47, phase 11's
+workers' gauges, read before the kill, before the roll (T=47) and at the
+end, and phase 12's tenant workers' (acme's at T=47 on both of its
+corpora, beta's at T=608); the main rows also phase 12's jobs' stripes,
+job (a)'s K1 at T=47 and job (b)'s K2 at T=608; K5's rows: phase 10's
+`--mesh 1,1` runs); the planes kernel (`score_pairs_fused`) launches on
+no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -224,6 +256,7 @@ Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import base64
 import contextlib
 import dataclasses
 import functools
@@ -1007,6 +1040,22 @@ def vendored_bases() -> list:
     return bases
 
 
+def write_files(items: list) -> None:
+    """Write each (path, text) of ``items``, its directory made, from 8
+    threads: on a slow file system the latency of each create, not the
+    CPU, bounds a manifest's set-up."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(item) -> None:
+        path, text = item
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w", encoding="utf-8") as fh:
+            fh.write(text)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(one, items))
+
+
 def write_manifest(np, root: str, seed: int, n_files: int = 2000) -> str:
     """The vendored slice's manifest: the vendored templates rendered with
     field values and the test fixtures, then seeded mutations of them."""
@@ -1022,16 +1071,15 @@ def write_big_manifest(np, root: str, seed: int, n_files: int = 12000,
     rng = np.random.default_rng(seed + 1)
     bases = vendored_bases()
     rates = (0.002, 0.01, 0.03, 0.1, 0.3)
-    files = []
+    items = []
     for i in range(n_files):
         name, text = bases[int(rng.integers(len(bases)))]
         if rng.random() < 0.3:
             text = mutate(text, rng, rates[int(rng.integers(len(rates)))])
-        path = os.path.join(root, f"f{i // 1000:02d}", f"{i:05d}.{name}")
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w", encoding="utf-8") as fh:
-            fh.write(text)
-        files.append(path)
+        items.append((os.path.join(root, f"f{i // 1000:02d}",
+                                   f"{i:05d}.{name}"), text))
+    write_files(items)
+    files = [path for path, _text in items]
     rows = files + [files[int(j)]
                     for j in rng.integers(0, n_files, n_rows - n_files)]
     rows.append(os.path.join(root, "missing", "LICENSE"))
@@ -1153,7 +1201,7 @@ def write_mixed_manifest(np, root: str, seed: int, n_repos: int = 2400) -> str:
     license_names = ("LICENSE", "LICENSE", "LICENSE.txt", "LICENSE.md",
                      "COPYING", "LICENSE-MIT", "COPYRIGHT")
     rates = (0.002, 0.01, 0.03, 0.1, 0.3)
-    paths = []
+    items = []
     for i in range(n_repos):
         repo = os.path.join(root, f"r{i // 100:02d}", f"repo{i:04d}")
         files = []
@@ -1169,12 +1217,9 @@ def write_mixed_manifest(np, root: str, seed: int, n_repos: int = 2400) -> str:
             files.append(readme_file(rng, i, bases, readmes, names))
         files += package_files(rng, i)
         files.append(("main.c", "int main(void) { return 0; }\n"))
-        for name, text in files:
-            path = os.path.join(repo, name)
-            os.makedirs(repo, exist_ok=True)
-            with open(path, "w", encoding="utf-8") as fh:
-                fh.write(text)
-            paths.append(path)
+        items += [(os.path.join(repo, name), text) for name, text in files]
+    write_files(items)
+    paths = [path for path, _text in items]
     paths.append(os.path.join(root, "missing", "LICENSE"))  # unreadable
     manifest = os.path.join(root, "manifest.txt")
     with open(manifest, "w", encoding="utf-8") as fh:
@@ -1188,21 +1233,15 @@ def write_rows(np, root: str, bases, seed: int, n_files: int) -> str:
     that cannot be read."""
     rng = np.random.default_rng(seed)
     bases = bases[: n_files - 1]
-    paths = []
-    for i, (name, text) in enumerate(bases):
-        path = os.path.join(root, f"b{i:04d}", name)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w", encoding="utf-8") as fh:
-            fh.write(text)
-        paths.append(path)
+    items = [(os.path.join(root, f"b{i:04d}", name), text)
+             for i, (name, text) in enumerate(bases)]
     rates = (0.002, 0.01, 0.03, 0.1, 0.3)
-    for i in range(n_files - len(paths) - 1):
+    for i in range(n_files - len(items) - 1):
         name, text = bases[int(rng.integers(len(bases)))]
-        path = os.path.join(root, f"m{i:04d}", name)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        with open(path, "w", encoding="utf-8") as fh:
-            fh.write(mutate(text, rng, rates[int(rng.integers(len(rates)))]))
-        paths.append(path)
+        items.append((os.path.join(root, f"m{i:04d}", name),
+                      mutate(text, rng, rates[int(rng.integers(len(rates)))])))
+    write_files(items)
+    paths = [path for path, _text in items]
     paths.append(os.path.join(root, "missing", "LICENSE"))  # unreadable
     manifest = os.path.join(root, "manifest.txt")
     with open(manifest, "w", encoding="utf-8") as fh:
@@ -1377,27 +1416,34 @@ def first_lines(data: bytes, n: int) -> bytes:
     return b"".join(data.splitlines(keepends=True)[:n])
 
 
-def featurizer_check(root: str, manifest: str) -> None:
-    """The first 600 rows of the vendored slice's native K1 run against
-    the same rows on the pure-Python featurizer
-    (LICENSEE_TPU_NO_NATIVE=1, in a child process that the call waits
-    for)."""
+def start_featurizer_check(root: str, manifest: str) -> tuple:
+    """The first 600 rows of the vendored slice on the pure-Python
+    featurizer (LICENSEE_TPU_NO_NATIVE=1, in a child process started now,
+    beside the slice's runs); `featurizer_check` holds them against the
+    native K1 run's."""
     manifest = prefix_manifest(manifest, 600)
     out = os.path.join(root, "vendored.pallas.no-native.jsonl")
     env = dict(os.environ, LICENSEE_TPU_NO_NATIVE="1")
-    t0 = time.perf_counter()
-    child = subprocess.run(
+    child = subprocess.Popen(
         [sys.executable, "-m", "licensee_tpu_torch.cli.main", "batch-detect",
          manifest, "--output", out, "--method", "pallas", "--stats"],
-        env=env, capture_output=True, text=True, timeout=900,
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         cwd=os.path.dirname(os.path.abspath(__file__)),
     )
+    return child, time.perf_counter(), manifest, out
+
+
+def featurizer_check(root: str, started: tuple) -> None:
+    """The native K1 run's first 600 rows against the pure-Python
+    featurizer's (`start_featurizer_check`'s child, waited for here)."""
+    child, t0, manifest, out = started
+    _out, err = child.communicate(timeout=900)
     if child.returncode != 0:
         raise RuntimeError(f"LICENSEE_TPU_NO_NATIVE run exited "
-                           f"{child.returncode}: {child.stderr[-2000:]}")
+                           f"{child.returncode}: {err[-2000:]}")
     elapsed = time.perf_counter() - t0
     n_rows = count_rows(manifest)
-    stats = json.loads(child.stderr.strip().splitlines()[-1])
+    stats = json.loads(err.strip().splitlines()[-1])
     python = read_rows(out, n_rows, "featurizer check")
     with open(os.path.join(root, "vendored.pallas.cuda.jsonl"), "rb") as fh:
         native = first_lines(fh.read(), n_rows)
@@ -1469,25 +1515,39 @@ def default_flags(torch, what: str, root: str, manifest: str,
         return
     # worker processes instead of threads, spawned beside the parent's
     # live CUDA context: the same bytes, and how far the GIL holds the
-    # threads back
-    procs = str(os.cpu_count())
+    # threads back (over the first 4,001 rows since PR 11: the script's
+    # time)
+    procs, procs_depth = str(os.cpu_count()), 4001
     out_p = os.path.join(root, f"{run}.procs{procs}.jsonl")
     data, _stats, _s, got = drive(
-        torch, f"{what} procs{procs}, first {depth} rows",
-        ["batch-detect", prefix_manifest(manifest, depth), "--output",
-         out_p, *extra, "--featurize-procs", procs], depth)
+        torch, f"{what} procs{procs}, first {procs_depth} rows",
+        ["batch-detect", prefix_manifest(manifest, procs_depth), "--output",
+         out_p, *extra, "--featurize-procs", procs], procs_depth)
     for name, n in got.items():
         launches[run, name] = launches.get((run, name), 0) + n
-    if data != first_lines(full, depth):
+    if data != first_lines(full, procs_depth):
         raise AssertionError(f"{what}: the --featurize-procs JSONL differs")
     log(f"default flags {what}: --featurize-procs {procs} over the first "
-        f"{depth} rows byte-identical to those rows of the default run")
+        f"{procs_depth} rows byte-identical to those rows of the default "
+        "run")
     got = resume_drill(torch, what, out,
                        ["batch-detect", manifest, "--output", out, *extra],
                        full, n_rows)
     for name, n in got.items():
         launches[run, name] = launches.get((run, name), 0) + n
-    busy_share(torch, what, lambda: one("profiled")[1:3], full)
+
+    def profiled():
+        # over the twins' rows since PR 11 (the script's time)
+        out_p = os.path.join(root, f"{run}.profiled.jsonl")
+        data, stats, _s, got = drive(
+            torch, f"{what} profiled, first {depth} rows",
+            ["batch-detect", twin_manifest, "--output", out_p, *extra],
+            depth)
+        for name, n in got.items():
+            launches[run, name] = launches.get((run, name), 0) + n
+        return data, stats
+
+    busy_share(torch, what, profiled, first_lines(full, depth))
 
 
 def busy_share(torch, what: str, run, full: bytes) -> None:
@@ -1511,56 +1571,58 @@ def busy_share(torch, what: str, run, full: bytes) -> None:
         "device time)")
 
 
-def phase_slice(np, torch, seed: int) -> dict:
-    """Phases 4 to 8 and 10 (which reuses their manifests and outputs);
-    returns {(run, kernel): launches}."""
+def phase_slice(np, torch, seed: int, root: str) -> tuple:
+    """Phases 4 to 8 and 10 (which reuses their manifests and outputs)
+    under ``root``; returns ({(run, kernel): launches}, the inputs phase
+    10 reused, for phase 12)."""
     from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
 
     launches = {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
-        vendored = write_manifest(np, os.path.join(root, "vendored"), seed)
+    vendored = write_manifest(np, os.path.join(root, "vendored"), seed)
+    t_phase = time.perf_counter()
+
+    def took(what: str) -> None:
+        nonlocal t_phase
+        log(f"{what} took {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
 
-        def took(what: str) -> None:
-            nonlocal t_phase
-            log(f"{what} took {time.perf_counter() - t_phase:.1f} s")
-            t_phase = time.perf_counter()
+    no_native = start_featurizer_check(root, vendored)
+    run_slice(torch, "vendored", root, vendored, [], launches)
+    t0 = time.perf_counter()
+    spdx_dir = synth_spdx_dir(os.path.join(root, "spdx-src"), SPDX_T,
+                              seed)
+    spdx = write_spdx_manifest(np, os.path.join(root, "spdx"), spdx_dir,
+                               seed)
+    log(f"slice spdx: {SPDX_T}-template synthetic SPDX directory and "
+        f"manifest written in {time.perf_counter() - t0:.1f} s")
+    run_slice(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
+              launches)
+    featurizer_check(root, no_native)
+    took("phase 4")
 
-        run_slice(torch, "vendored", root, vendored, [], launches)
-        featurizer_check(root, vendored)
-        t0 = time.perf_counter()
-        spdx_dir = synth_spdx_dir(os.path.join(root, "spdx-src"), SPDX_T,
-                                  seed)
-        spdx = write_spdx_manifest(np, os.path.join(root, "spdx"), spdx_dir,
-                                   seed)
-        log(f"slice spdx: {SPDX_T}-template synthetic SPDX directory and "
-            f"manifest written in {time.perf_counter() - t0:.1f} s")
-        run_slice(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
-                  launches)
-        took("phase 4")
-
-        t0 = time.perf_counter()
-        big = write_big_manifest(np, os.path.join(root, "big"), seed)
-        log(f"default flags: 50,001-row manifest over 12,000 files written "
-            f"in {time.perf_counter() - t0:.1f} s")
-        default_flags(torch, "vendored", root, big, [], launches,
-                      "vendored", drill=True)
-        default_flags(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
-                      launches, "spdx", drill=False)
-        took("phase 5")
-        modes(np, torch, seed, root, spdx, spdx_dir, launches)
-        took("phase 6")
-        packed = containers(np, torch, seed, root, launches)
-        took("phase 7")
-        phase_detect(torch, root, vendored, launches)
-        took("phase 8")
-        with open(os.path.join(root, "vendored.default.jsonl"), "rb") as fh:
-            big_full = fh.read()
-        phase_scale(np, torch, seed, root, {
-            "big": big, "big_full": big_full, "vendored": vendored,
-            "spdx": spdx, "spdx_dir": spdx_dir, "containers": packed,
-        }, launches)
-    return launches
+    t0 = time.perf_counter()
+    big = write_big_manifest(np, os.path.join(root, "big"), seed)
+    log(f"default flags: 50,001-row manifest over 12,000 files written "
+        f"in {time.perf_counter() - t0:.1f} s")
+    default_flags(torch, "vendored", root, big, [], launches,
+                  "vendored", drill=True)
+    default_flags(torch, "spdx", root, spdx, ["--corpus", spdx_dir],
+                  launches, "spdx", drill=False)
+    took("phase 5")
+    modes(np, torch, seed, root, spdx, spdx_dir, launches)
+    took("phase 6")
+    packed = containers(np, torch, seed, root, launches)
+    took("phase 7")
+    phase_detect(torch, root, vendored, launches)
+    took("phase 8")
+    with open(os.path.join(root, "vendored.default.jsonl"), "rb") as fh:
+        big_full = fh.read()
+    inputs = {
+        "big": big, "big_full": big_full, "vendored": vendored,
+        "spdx": spdx, "spdx_dir": spdx_dir, "containers": packed,
+    }
+    phase_scale(np, torch, seed, root, inputs, launches)
+    return launches, inputs
 
 
 def resume_drill(torch, what: str, out: str, argv: list[str], full: bytes,
@@ -1772,20 +1834,28 @@ def write_git_repo(repo: str, files: list) -> None:
                        capture_output=True, timeout=60)
 
 
-def write_container_manifest(np, root: str, seed: int) -> tuple:
+def write_container_manifest(np, root: str, seed: int,
+                             n_repos: int = 2400, src: str | None = None
+                             ) -> tuple:
     """`write_mixed_manifest`'s 2,400 repository directories packed as
     containers (`CONTAINER_CYCLE`): a .tar under ``package/`` (npm), a
     .tar.gz under ``repoN-1.0/`` (an sdist), a flat .zip (a wheel), a git
     checkout; each listed whole (``::*``, ``::HEAD``), one archive in 40
     also by its first member, and the mixed manifest's unreadable path.
+    ``src`` is that mixed manifest where it is already written (phase
+    6's, the same seed and size); the containers are written by 8
+    threads (a slow file system's latency, not the CPU, bounds them).
     Returns (manifest, expanded rows, containers by kind)."""
     import io
     import tarfile
     import zipfile
+    from concurrent.futures import ThreadPoolExecutor
 
     from licensee_tpu_torch.ingest.sources import expand_manifest
 
-    src = write_mixed_manifest(np, os.path.join(root, "src"), seed)
+    if src is None:
+        src = write_mixed_manifest(np, os.path.join(root, "src"), seed,
+                                   n_repos)
     with open(src, encoding="utf-8") as fh:
         paths = fh.read().split()
     repos: dict[str, list] = {}
@@ -1795,15 +1865,17 @@ def write_container_manifest(np, root: str, seed: int) -> tuple:
                 (os.path.basename(path), fh.read()))
     out_dir = os.path.join(root, "packed")
     os.makedirs(out_dir)
-    entries, kinds = [], {}
-    for i, files in enumerate(repos.values()):
+    kinds = {}
+    for i in range(len(repos)):
         kind = CONTAINER_CYCLE[i % len(CONTAINER_CYCLE)]
         kinds[kind] = kinds.get(kind, 0) + 1
+
+    def pack(i: int, files: list) -> list:
+        kind = CONTAINER_CYCLE[i % len(CONTAINER_CYCLE)]
         if kind == "git":
             repo = os.path.join(out_dir, f"repo{i:04d}")
             write_git_repo(repo, files)
-            entries.append(f"{repo}::HEAD")
-            continue
+            return [f"{repo}::HEAD"]
         prefix = {"tar": "package/", "tar.gz": f"repo{i:04d}-1.0/",
                   "zip": ""}[kind]
         arch = os.path.join(out_dir, f"repo{i:04d}.{kind}")
@@ -1818,9 +1890,15 @@ def write_container_manifest(np, root: str, seed: int) -> tuple:
                     info = tarfile.TarInfo(prefix + name)
                     info.size, info.mtime = len(data), ARCHIVE_MTIME
                     tf.addfile(info, io.BytesIO(data))
-        entries.append(f"{arch}::*")
+        listed = [f"{arch}::*"]
         if i % 40 == 0:
-            entries.append(f"{arch}::{prefix}{files[0][0]}")
+            listed.append(f"{arch}::{prefix}{files[0][0]}")
+        return listed
+
+    entries = []
+    with ThreadPoolExecutor(8) as pool:
+        for listed in pool.map(pack, range(len(repos)), repos.values()):
+            entries += listed
     entries.append(paths[-1])  # the path that cannot be read
     manifest = os.path.join(root, "containers.txt")
     with open(manifest, "w", encoding="utf-8") as fh:
@@ -1845,8 +1923,10 @@ def containers(np, torch, seed: int, root: str, launches: dict) -> dict:
     its rows, the archives' directory and each mode's (flags, JSONL,
     container verdicts, stats) for phase 10."""
     t0 = time.perf_counter()
+    mixed = os.path.join(root, "mixed", "manifest.txt")  # phase 6's
     manifest, n_rows, kinds = write_container_manifest(
-        np, os.path.join(root, "containers"), seed)
+        np, os.path.join(root, "containers"), seed,
+        src=mixed if os.path.exists(mixed) else None)
     report = {"manifest": manifest, "n_rows": n_rows,
               "packed": os.path.join(root, "containers", "packed"),
               "modes": {}}
@@ -2174,23 +2254,23 @@ def remote_containers(torch, root: str, cont: dict, base: str, command,
             f" rows/s over the run, read {lst.get('read', 0.0):.4f} s")
         report[label] = (out, data, rverdicts)
     # the twins of both modes after the timed runs, over the first 600
-    # entries, as child processes one at a time: each keeps connections
-    # to the blob host open for every container, and two at once have
-    # had connections refused
+    # entries, one at a time: each keeps connections to the blob host
+    # open for every container, and two at once have had connections
+    # refused
     part = prefix_manifest(manifest, 600)
     n_part = count_rows_expanded(part)
     for (label, twin), (flags, extra) in twins.items():
         twin_out = os.path.join(root, f"remote.{label}.{twin}.jsonl")
-        proc = cli_process(["batch-detect", part, "--output", twin_out,
-                            *flags, *extra])
-        _o, err = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"remote containers {label} {twin}: exit "
-                               f"{proc.returncode}: {err[-2000:]}")
+        twin_data, _st, _s, k = drive(
+            torch, f"remote containers {label} {twin}, first 600 entries",
+            ["batch-detect", part, "--output", twin_out, *flags, *extra],
+            n_part)
+        for name, c in k.items():
+            launches["vendored", name] = launches.get(
+                ("vendored", name), 0) + c
         _out, data, rverdicts = report[label]
-        with open(twin_out, "rb") as fh, open(
-                twin_out + ".containers.jsonl", "rb") as vh:
-            if fh.read() != first_lines(data, n_part) or not set(
+        with open(twin_out + ".containers.jsonl", "rb") as vh:
+            if twin_data != first_lines(data, n_part) or not set(
                     vh.read().splitlines()) <= set(rverdicts.splitlines()):
                 raise AssertionError(f"remote containers {label}: the "
                                      f"{twin} JSONL or container verdicts "
@@ -2436,7 +2516,7 @@ def finish_selftests(procs: dict, t0: float) -> None:
         log(f"batch-detect {flag}: passed on the card ({len(oks)} OK "
             f"lines: {oks[-1][:160] if oks else ''})")
     log(f"selftests: done {time.perf_counter() - t0:.1f} s after their "
-        "start (beside the kill drill and the elastic and remote stripes)")
+        "start (beside phase 10's runs)")
 
 
 def phase_scale(np, torch, seed: int, root: str, inputs: dict,
@@ -2446,6 +2526,8 @@ def phase_scale(np, torch, seed: int, root: str, inputs: dict,
     t_phase = time.perf_counter()
     card = smi("name,power.limit")
     log(f"phase 10 (scale): {card}; host nproc {os.cpu_count()}")
+    # the selftests' child processes run beside the whole phase
+    t_self, selftest_procs = time.perf_counter(), start_selftests()
     mesh_and_lanes(torch, root, inputs, launches)
     serve_mesh(torch, inputs)
     cont = inputs["containers"]
@@ -2453,16 +2535,13 @@ def phase_scale(np, torch, seed: int, root: str, inputs: dict,
     with blob_host(cont["packed"]) as (base, command):
         remote = remote_containers(torch, root, cont, base, command,
                                    launches)
-        # the stripes over the first 25,001 rows of phase 5's manifest
-        # (the script's time: phase 11 came after them)
-        big = prefix_manifest(inputs["big"], 25001)
-        full = first_lines(inputs["big_full"], 25001)
+        # the stripes over the first 10,001 rows of phase 5's manifest
+        # (the script's time: phases 11 and 12 came after them)
+        big = prefix_manifest(inputs["big"], 10001)
+        full = first_lines(inputs["big_full"], 10001)
         for n in ("1", "2", "4"):
             timing[f"stripes {n}"] = striped(torch, f"vendored{n}", root,
                                              big, n, full)
-        # the selftests' child processes run beside the untimed drills
-        # that follow: the kill drill, the elastic and remote stripes
-        t_self, selftest_procs = time.perf_counter(), start_selftests()
         kill_drill(root, big, full)
         with open(os.path.join(root, "scale.vendored.default.jsonl"),
                   "rb") as fh:
@@ -2769,8 +2848,8 @@ class ServeScale:
 
     mixed_repos: int = 480      # the auto session: ~2,000 crawl files
     vendored_files: int = 2000  # the license session
-    variants: int = 10000       # the 64-client runs at T=47
-    variants_608: int = 5000    # and at T=608
+    variants: int = 5000        # the 64-client runs at T=47
+    variants_608: int = 2500    # and at T=608
     clients: int = 64
     window: int = 8             # requests each client keeps in flight
     single: int = 400           # the one-client runs
@@ -2878,11 +2957,13 @@ def socket_run(target: str, reqs: list, clients: int, window: int,
     return rows, took
 
 
-def http_request(obj: dict) -> bytes:
-    """One keep-alive ``POST /classify`` of the fleet's HTTP edge."""
+def http_request(obj: dict, token: str | None = None) -> bytes:
+    """One keep-alive ``POST /classify`` of the fleet's HTTP edge (with
+    ``token``, under that bearer token)."""
     body = json.dumps(obj).encode()
-    return (b"POST /classify HTTP/1.1\r\nHost: edge\r\n"
-            b"Content-Type: application/json\r\n"
+    auth = b"Authorization: Bearer %s\r\n" % token.encode() if token else b""
+    return (b"POST /classify HTTP/1.1\r\nHost: edge\r\n" + auth
+            + b"Content-Type: application/json\r\n"
             b"Content-Length: %d\r\n\r\n" % len(body)) + body
 
 
@@ -2901,7 +2982,7 @@ def read_http(fh) -> tuple:
 
 def client_run(target: str, reqs: list, clients: int, window: int,
                control=None, timeout: float = 120.0,
-               http: bool = False) -> tuple:
+               http: bool = False, token: str | None = None) -> tuple:
     """``clients`` closed-loop clients over the socket (with ``http``, the
     fleet's HTTP edge, keep-alive), each on its own connection sending
     its share of ``reqs`` ``window`` requests at a time and reading their
@@ -2910,7 +2991,8 @@ def client_run(target: str, reqs: list, clients: int, window: int,
     their shares until it returns, so traffic flows before, during and
     after what it does.  Returns (rows by id, seconds, each request's
     milliseconds from its window's write to its answer).  A non-200
-    answer of the edge is an error."""
+    answer of the edge is an error; ``token`` is the edge's bearer
+    token."""
     import threading
 
     rows: dict = {}
@@ -2929,7 +3011,8 @@ def client_run(target: str, reqs: list, clients: int, window: int,
                     if 3 * i >= 2 * len(mine) and not resume.wait(300):
                         raise TimeoutError("control never resumed")
                     part = mine[i:i + window]
-                    frame = http_request if http else request_line
+                    frame = (functools.partial(http_request, token=token)
+                             if http else request_line)
                     t_sent = time.perf_counter()
                     fh.write(b"".join(frame(r) for r in part))
                     fh.flush()
@@ -3600,14 +3683,14 @@ class FleetScale:
     """How much traffic phase 11 sends through the fleet: the defaults on
     the card, `tiny` for the test that runs the phase on the CPU."""
 
-    variants: int = 10000       # front, 64 clients, T=47 (phase 9's mix)
-    variants_608: int = 5000    # and at T=608 after the roll
+    variants: int = 5000        # front, 64 clients, T=47 (phase 9's mix)
+    variants_608: int = 2500    # and at T=608 after the roll
     clients: int = 64
     window: int = 8             # requests each client keeps in flight
     edge_clients: int = 16
     edge_requests: int = 4000   # through the edge at T=47; half at T=608
-    kill_requests: int = 3000   # the SIGKILL drill
-    reload_requests: int = 3000  # the rolling reload
+    kill_requests: int = 2000   # the SIGKILL drill
+    reload_requests: int = 2000  # the rolling reload
     open_loop_rate: float = 50.0  # each open-loop edge client's requests/s
     open_loop_s: float = 3.0
     selftests: tuple = ("real", "stub")  # `fleet --selftest*` children
@@ -3691,39 +3774,65 @@ def reload_wants(reqs: list, corpora: dict) -> dict:
     return want
 
 
-def start_fleet_children(scale: FleetScale, device: str) -> dict:
+class TimedChildren:
+    """The port's CLI as child processes started together, each reaped by
+    a thread of its own, so that each one's seconds from the start to its
+    exit are its own; `finish` checks that each exited 0 and that its
+    last JSON line (stdout or stderr) says ``"problems": []``."""
+
+    def __init__(self, runs: list):
+        import threading
+
+        self.t0 = time.perf_counter()
+        self.procs = {" ".join(argv): cli_process(argv,
+                                                  stdout=subprocess.PIPE)
+                      for argv in runs}
+        self.ended = {}
+        self.threads = [threading.Thread(target=self._reap, args=item,
+                                         daemon=True)
+                        for item in self.procs.items()]
+        for t in self.threads:
+            t.start()
+
+    def _reap(self, name: str, proc) -> None:
+        out, err = proc.communicate(timeout=900)
+        self.ended[name] = (proc.returncode, out, err,
+                            time.perf_counter() - self.t0)
+
+    def finish(self) -> tuple:
+        """({run: seconds from the start to its exit}, {run: its last
+        JSON line})."""
+        for t in self.threads:
+            t.join(timeout=900)
+        took, summaries = {}, {}
+        for name in self.procs:
+            if name not in self.ended:
+                raise AssertionError(f"{name} did not end")
+            rc, out, err, took[name] = self.ended[name]
+            summaries[name] = next((json.loads(line) for line in reversed(
+                (out + err).splitlines()) if line.startswith('{"')), {})
+            if rc != 0 or summaries[name].get("problems") != []:
+                raise AssertionError(f"{name}: exit {rc}: {out[-1500:]} "
+                                     f"{err[-3000:]}")
+        return took, summaries
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        for t in self.threads:
+            t.join(timeout=30)
+
+
+def start_fleet_children(scale: FleetScale, device: str) -> TimedChildren:
     """`fleet --selftest*` (real workers on ``device``, and the stub
-    twins) and `stats --selftest`, as child processes started together
-    (`finish_fleet_children` waits for them)."""
+    twins) and `stats --selftest`, as child processes started together."""
     runs = [["stats", "--selftest"]]
     for kind in scale.selftests:
         for flags in FLEET_SELFTESTS[kind]:
             dev = ["--device", device] if kind == "real" else []
             runs.append(["fleet", *flags.split(), *dev])
-    return {" ".join(argv): cli_process(argv, stdout=subprocess.PIPE)
-            for argv in runs}
-
-
-def finish_fleet_children(procs: dict) -> dict:
-    """Wait for every child: each must exit 0 and its last JSON line
-    (stdout or stderr) must say ``"problems": []``.  Returns {run:
-    seconds it took after the start}."""
-    t0 = time.perf_counter()
-    took = {}
-    for name, proc in procs.items():
-        try:
-            out, err = proc.communicate(timeout=600)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            raise AssertionError(f"{name} timed out") from None
-        took[name] = time.perf_counter() - t0
-        summary = next((json.loads(line) for line in reversed(
-            (out + err).splitlines()) if line.startswith('{"')), {})
-        if proc.returncode != 0 or summary.get("problems") != []:
-            raise AssertionError(f"{name}: exit {proc.returncode}: "
-                                 f"{out[-1500:]} {err[-3000:]}")
-    return took
+    return TimedChildren(runs)
 
 
 def fleet_verbs(front: str, workers: list) -> dict:
@@ -4052,7 +4161,6 @@ def phase_fleet(np, torch, seed: int, device: str = "cuda",
 
         # -- the children (selftests) beside the verbs and the quiet --
         children = start_fleet_children(scale, device)
-        t_children = time.perf_counter()
         verbs = fleet_verbs(front, list(workers.values()))
         slo = json.loads(verbs["slo"])
         timing["slo"] = {"ok": slo["ok"], **{
@@ -4082,9 +4190,10 @@ def phase_fleet(np, torch, seed: int, device: str = "cuda",
             for w in workers}
         timing["victim_k1_launches"] = victim.get("best_match_fused", 0)
         timing["quiet_s"] = await_quiet_alerts(front)
-        timing["children"] = finish_fleet_children(children)
-        log(f"fleet children: {', '.join(children)} passed "
-            f"({time.perf_counter() - t_children:.1f} s after their start)")
+        timing["children"], _summaries = children.finish()
+        log(f"fleet children: {', '.join(children.procs)} passed "
+            f"({max(timing['children'].values(), default=0):.1f} s after "
+            "their start)")
         # the T=47 share: the victim before its death and every worker
         # before the roll; the rest (the roll's validation and warm-up,
         # T=608 traffic) at T=608
@@ -4136,6 +4245,427 @@ def phase_fleet(np, torch, seed: int, device: str = "cuda",
     return {"launches": launches, "timing": timing}
 
 
+# -- phase 12: tenancy and jobs ------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TenancyScale:
+    """How much phase 12 sends: the defaults on the card, `tiny` for a
+    rehearsal on the CPU."""
+
+    classify: int = 2000        # tagged classifies a tenant (phase 9's mix)
+    clients: int = 8            # edge clients a tenant
+    window: int = 8             # requests each client keeps in flight
+    roll_requests: int = 1000   # beta's during acme's roll, acme's after
+    container_repos: int = 2400  # job (a)'s repositories without phase 7's
+    selftests: tuple = ("real", "stub")  # `fleet --selftest-*` children
+
+    @classmethod
+    def tiny(cls) -> "TenancyScale":
+        return cls(classify=60, clients=2, window=4, roll_requests=40,
+                   container_repos=30, selftests=())
+
+
+TENANCY_SELFTESTS = {
+    "real": ("--selftest-tenant", "--selftest-jobs"),
+    "stub": ("--selftest-tenant --stub", "--selftest-jobs --stub"),
+}
+TENANT_TOKENS = {"acme": "tok-acme", "beta": "tok-beta"}
+TERMINAL = ("completed", "failed", "cancelled")
+
+
+def edge_post(edge: str, path: str, token: str, payload: dict,
+              timeout: float = 600.0) -> tuple:
+    """(status, parsed body) of one ``POST path`` to the edge."""
+    body = json.dumps(payload).encode()
+    with connect(edge, timeout) as sock, sock.makefile("rwb") as fh:
+        fh.write((f"POST {path} HTTP/1.1\r\nHost: edge\r\n"
+                  f"Authorization: Bearer {token}\r\n"
+                  f"Content-Length: {len(body)}\r\n\r\n").encode() + body)
+        fh.flush()
+        code, raw = read_http(fh)
+    return code, json.loads(raw)
+
+
+def tenant_run(edge: str, tenant: str, reqs: list, want: dict, fp: str,
+               scale: TenancyScale, control=None) -> dict:
+    """``reqs`` tagged with ``tenant`` under its token through the edge:
+    every row equals the CPU reference ``want``, comes from a worker of
+    the tenant's pool and stamps the pool's short fingerprint ``fp``.
+    Returns the run's numbers."""
+    tagged = [{**r, "corpus": tenant} for r in reqs]
+    rows, took, lats = client_run(edge, tagged, scale.clients, scale.window,
+                                  control=control, timeout=600.0, http=True,
+                                  token=TENANT_TOKENS[tenant])
+    crossed = [r for r in rows.values()
+               if not str(r.get("worker", "")).startswith(tenant)
+               or r.get("corpus") != fp]
+    if crossed:
+        raise AssertionError(f"tenancy {tenant}: {len(crossed)} rows from "
+                             f"another pool or corpus than {fp}, e.g. "
+                             f"{crossed[:2]}")
+    held_to_cpu(f"tenancy {tenant}", rows, want)
+    return {"requests": len(reqs), "seconds": took,
+            "requests_per_s": len(reqs) / took,
+            "p50_ms": percentile(lats, 0.5), "p99_ms": percentile(lats, 0.99)}
+
+
+def job_launches(prom: str) -> dict:
+    """{kernel: launches} summed over a job's merged stripe exposition."""
+    out = {}
+    with open(prom, encoding="utf-8") as fh:
+        for line in fh:
+            m = re.match(r'device_kernel_launches\{[^}]*kernel="([^"]+)"'
+                         r'[^}]*\} (\S+)$', line.strip())
+            if m:
+                out[m.group(1)] = out.get(m.group(1), 0) + int(
+                    float(m.group(2)))
+    return out
+
+
+def read_or_none(path: str) -> bytes | None:
+    try:
+        with open(path, "rb") as fh:
+            return fh.read()
+    except FileNotFoundError:
+        return None
+
+
+def phase_tenancy(np, torch, seed: int, device: str = "cuda",
+                  scale: TenancyScale | None = None, root: str | None = None,
+                  inputs: dict | None = None, refs: dict | None = None
+                  ) -> dict:
+    """Phase 12: the tenancy and jobs tiers on ``device`` (the module's
+    docstring lists its runs).  ``inputs`` are phase 10's (phase 5's T=608
+    manifest and directory, phase 7's containers), ``refs`` phase 9's
+    reference rows by run label; what is missing is made here.  Returns
+    {"launches": {(run, kernel): n}, "timing": {...}}."""
+    if root is None:
+        with tempfile.TemporaryDirectory(prefix="cs_tenancy_") as tmp:
+            return phase_tenancy(np, torch, seed, device, scale, tmp,
+                                 inputs, refs)
+    from licensee_tpu_torch.corpus.artifact import (
+        corpus_fingerprint,
+        short_fingerprint,
+    )
+    from licensee_tpu_torch.corpus.compiler import default_corpus
+    from licensee_tpu_torch.corpus.spdx import load_spdx_dir, spdx_corpus
+    from licensee_tpu_torch.corpus.spdx_synth import synth_spdx_dir
+    from licensee_tpu_torch.fleet.wire import oneshot
+    from licensee_tpu_torch.jobs.client import JobsClient
+    from licensee_tpu_torch.jobs.executor import JobExecutor, validate_spec
+
+    scale = scale or TenancyScale()
+    inputs = inputs or {}
+    refs = refs or {}
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    card = smi("name,power.limit") if on_card else "cpu"
+    # the selftests run beside everything else the phase does, and so
+    # does the native featurizer's parity selftest (host-only: it opens
+    # no device), whose SKIP (no native library) is a failure here
+    children = TimedChildren([["fleet", *flags.split(), "--device", device]
+                              for kind in scale.selftests
+                              for flags in TENANCY_SELFTESTS[kind]])
+    repo = os.path.dirname(os.path.abspath(__file__))
+    native = subprocess.Popen(
+        [sys.executable, "-m", "licensee_tpu_torch.native.selftest"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=repo, env={**os.environ, "PYTHONPATH": repo})
+
+    # -- inputs: the tenants' corpora and requests, the jobs' manifests --
+    spdx_dir = inputs.get("spdx_dir") or synth_spdx_dir(
+        os.path.join(root, "spdx-src"), SPDX_T, seed)
+    spdx = inputs.get("spdx") or write_spdx_manifest(
+        np, os.path.join(root, "spdx"), spdx_dir, seed)
+    cont = inputs.get("containers") or {}
+    containers_manifest = cont.get("manifest") or write_container_manifest(
+        np, os.path.join(root, "containers"), seed,
+        scale.container_repos)[0]
+    corpus_608, roll_corpus = spdx_corpus(spdx_dir), spdx_corpus(None)
+    fps = {name: short_fingerprint(corpus_fingerprint(c)) for name, c in (
+        ("acme", default_corpus()), ("beta", corpus_608),
+        ("roll", roll_corpus))}
+    artifact = os.path.join(root, "acme.corpus.npz")
+    rc, _out, err, _s = run_verb(["corpus-build", "--corpus", "spdx",
+                                  "--output", artifact])
+    if rc != 0:
+        raise RuntimeError(f"corpus-build: {err[-2000:]}")
+    bases = vendored_bases()
+    bases_608 = [(t.key, t.content) for t in load_spdx_dir(spdx_dir)]
+    acme_reqs = variant_requests(bases, scale.classify, "a")
+    beta_reqs = variant_requests(bases_608, scale.classify, "b")
+    beta_roll = variant_requests(bases_608, scale.roll_requests, "u")
+    acme_after = variant_requests(bases, scale.roll_requests, "t")
+    want_acme = refs.get("T=47 64 clients")
+    if want_acme is None or len(want_acme) < len(acme_reqs):
+        want_acme = cpu_rows(acme_reqs)
+    want_beta = refs.get(f"T={SPDX_T} 64 clients")
+    if want_beta is None or len(want_beta) < len(beta_reqs):
+        want_beta = cpu_rows(beta_reqs, corpus=corpus_608)
+    want_beta_roll = cpu_rows(beta_roll, corpus=corpus_608)
+    want_after = cpu_rows(acme_after, corpus=roll_corpus)
+    registry = os.path.join(root, "tenants.json")
+    with open(registry, "w", encoding="utf-8") as fh:
+        json.dump({"version": 1, "default_pool": "acme", "tenants": {
+            "acme": {"token": TENANT_TOKENS["acme"], "corpus": "vendored"},
+            "beta": {"token": TENANT_TOKENS["beta"], "corpus": spdx_dir},
+        }}, fh)
+    log(f"tenancy inputs: fingerprints {fps}, {len(acme_reqs)} + "
+        f"{len(beta_reqs)} tagged requests, references ready "
+        f"({time.perf_counter() - t_phase:.1f} s)")
+
+    # -- boot: one worker a pool, the edge, the jobs tier --
+    sock_dir = os.path.join(root, "w")
+    jobs_dir = os.path.join(root, "jobs")
+    front = os.path.join(root, "front.sock")
+    fleet_log = open(os.path.join(root, "fleet.log"), "w+")
+    t0 = time.perf_counter()
+    # the edge binds a port the system picks (the selftests beside it
+    # bind ports of their own all the while) and the fleet names it
+    fleet = subprocess.Popen(
+        [sys.executable, "-m", "licensee_tpu_torch.cli.main", "fleet",
+         "--tenants", registry, "--workers", "1", "--socket", front,
+         "--socket-dir", sock_dir, "--http", "127.0.0.1:0",
+         "--jobs-dir", jobs_dir,
+         "--jobs-concurrency", "2", "--edge-rate", "1000000",
+         "--device", device],
+        stdout=subprocess.DEVNULL, stderr=fleet_log,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    timing = {"card": card}
+    launches = {}
+    cpu_jobs = JobExecutor(os.path.join(root, "cpu-jobs"), device="cpu",
+                           max_concurrent=2)
+    try:
+        edge = None
+        while edge is None:
+            fleet_log.seek(0)
+            said = fleet_log.read()
+            m = re.search(r"HTTP edge on \S+ \(port (\d+)\)", said)
+            if m:
+                edge = f"127.0.0.1:{m.group(1)}"
+            elif fleet.poll() is not None or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"the tenant fleet did not boot: exit "
+                                     f"{fleet.poll()}: {said}")
+            else:
+                time.sleep(0.05)
+        timing["boot_s"] = time.perf_counter() - t0
+        workers = {name: b["socket"] for name, b in
+                   front_stats(front)["backends"].items()}
+        if sorted(workers) != ["acme0", "beta0"]:
+            raise AssertionError(f"tenant fleet workers: {workers}")
+
+        # -- tagged classifies under each token --
+        timing["runs"] = {
+            "acme T=47": tenant_run(edge, "acme", acme_reqs, want_acme,
+                                    fps["acme"], scale),
+            f"beta T={SPDX_T}": tenant_run(edge, "beta", beta_reqs,
+                                           want_beta, fps["beta"], scale),
+        }
+
+        # -- acme's POST /corpus under beta's traffic, then acme's rows --
+        with open(artifact, "rb") as fh:
+            upload = {"artifact_b64": base64.b64encode(fh.read()).decode(),
+                      "name": "acme.corpus.npz"}
+        roll = {}
+
+        def control(rows: dict) -> None:
+            deadline = time.monotonic() + 300
+            while len(rows) < len(beta_roll) // 4 and \
+                    time.monotonic() < deadline:
+                time.sleep(0.005)
+            t_roll = time.perf_counter()
+            roll["code"], roll["body"] = edge_post(
+                edge, "/corpus", TENANT_TOKENS["acme"], upload)
+            roll["seconds"] = time.perf_counter() - t_roll
+
+        timing["runs"][f"beta T={SPDX_T} during the roll"] = tenant_run(
+            edge, "beta", beta_roll, want_beta_roll, fps["beta"], scale,
+            control=control)
+        rolled = roll["body"].get("corpus") or {}
+        if roll["code"] != 200 or rolled.get("pool") != "acme" or \
+                short_fingerprint(rolled.get("fingerprint")) != fps["roll"]:
+            raise AssertionError(f"acme's POST /corpus: {roll}")
+        timing["roll_s"] = roll["seconds"]
+        timing["runs"]["acme after the roll"] = tenant_run(
+            edge, "acme", acme_after, want_after, fps["roll"], scale)
+        with open(registry, encoding="utf-8") as fh:
+            saved = json.load(fh)["tenants"]
+        if saved["acme"]["corpus"] != rolled["corpus"] or \
+                saved["beta"]["corpus"] != spdx_dir:
+            raise AssertionError(f"the registry after the roll: {saved}")
+        log(f"tenancy: acme rolled to {fps['roll']} in "
+            f"{roll['seconds']:.3f} s under beta's traffic; the registry "
+            "names the staged artifact")
+
+        # -- two jobs through the `jobs` verb, each beside the same spec
+        #    on a device='cpu' executor --
+        specs = {
+            "a": (containers_manifest, ["--stripes", "2"],
+                  {"stripes": 2}),
+            "b": (spdx, ["--option", f"corpus={spdx_dir}", "--option",
+                         "method=matmul"],
+                  {"options": {"corpus": spdx_dir, "method": "matmul"}}),
+        }
+        cpu_jobs.start()
+        jobs, cpu_ids = {}, {}
+        for name, (manifest, flags, extra) in specs.items():
+            with open(manifest, encoding="utf-8") as fh:
+                entries = [line.strip() for line in fh if line.strip()]
+            spec, reason = validate_spec({"manifest": entries, **extra})
+            if reason is not None:
+                raise AssertionError(f"job ({name}): {reason}")
+            cpu_ids[name] = cpu_jobs.submit(spec)[0].job_id
+            t_submit = time.perf_counter()
+            rc, out, err, _s = run_verb([
+                "jobs", "submit", "--edge", edge, "--token",
+                TENANT_TOKENS["acme"], "--manifest", manifest, *flags])
+            if rc != 0:
+                raise AssertionError(f"jobs submit ({name}): {err[-2000:]}")
+            jobs[name] = (json.loads(out)["job_id"], t_submit)
+        client = JobsClient(edge, token=TENANT_TOKENS["acme"])
+        done = {}
+        try:
+            deadline = time.monotonic() + 900
+            while len(done) < len(jobs):
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"jobs not done: {done}")
+                for name, (job_id, _t) in jobs.items():
+                    if name not in done:
+                        code, row = client.status(job_id)
+                        if row.get("state") in TERMINAL:
+                            done[name] = (row, time.perf_counter())
+                time.sleep(0.05)
+        finally:
+            client.close()
+        for name, cpu_id in cpu_ids.items():
+            while cpu_jobs.status(cpu_id)["state"] not in TERMINAL:
+                time.sleep(0.05)
+        timing["jobs"] = {}
+        for name, (job_id, t_submit) in jobs.items():
+            row, t_done = done[name]
+            rc, out, err, _s = run_verb(["jobs", "wait", job_id, "--edge",
+                                         edge, "--token",
+                                         TENANT_TOKENS["acme"]])
+            if rc != 0 or json.loads(out)["state"] != "completed":
+                raise AssertionError(f"job ({name}): {row}: {err[-2000:]}")
+            got = {}
+            for what in ("results", "containers"):
+                out_path = os.path.join(root, f"job-{name}.{what}")
+                rc, _out, err, _s = run_verb([
+                    "jobs", what, job_id, "--edge", edge, "--token",
+                    TENANT_TOKENS["acme"], "--output", out_path])
+                if rc != 0:
+                    raise AssertionError(f"jobs {what} ({name}): {err}")
+                got[what] = read_or_none(out_path)
+            cpu_out = cpu_jobs.results_path(cpu_ids[name])
+            want = {"results": read_or_none(cpu_out or ""),
+                    "containers": read_or_none(f"{cpu_out}.containers.jsonl")
+                    or b""}
+            if cpu_out is None or got != want:
+                raise AssertionError(
+                    f"job ({name}): results {len(got['results'])} bytes, "
+                    f"containers {len(got['containers'] or b'')} bytes, "
+                    f"differ from the device='cpu' executor's "
+                    f"({cpu_jobs.status(cpu_ids[name])})")
+            modes = cont.get("modes") or {}
+            if name == "a" and "license" in modes and (
+                    modes["license"][1], modes["license"][2]) != (
+                    got["results"], got["containers"]):
+                raise AssertionError("job (a): its rows differ from phase "
+                                     "7's --mode license run")
+            kernels = job_launches(os.path.join(
+                jobs_dir, job_id, "results.jsonl.prom"))
+            kernel = "best_match_fused" if name == "a" else \
+                "overlap_pairs_mma"
+            others = {k: n for k, n in kernels.items() if n and k != kernel}
+            if others or (on_card and not kernels.get(kernel)):
+                raise AssertionError(f"job ({name}): stripe launches "
+                                     f"{kernels}")
+            launches[("vendored" if name == "a" else "spdx", kernel)] = \
+                kernels.get(kernel, 0)
+            kernels = {k: n for k, n in kernels.items() if n}
+            rows = row["rows_written"]
+            timing["jobs"][name] = {
+                "rows": rows, "seconds": t_done - t_submit,
+                "rows_per_s": rows / (t_done - t_submit),
+                "runner_s": row["elapsed_s"], "stripes": row["stripes"],
+                "launches": kernels}
+        log("tenancy jobs: (a) and (b) byte-identical to the device='cpu' "
+            "executor's" + (", (a) also to phase 7's --mode license run"
+                            if "license" in (cont.get("modes") or {})
+                            else ""))
+
+        # -- the pools' workers: no fallback, K1 and nothing else --
+        for w, sock in workers.items():
+            st = oneshot(sock, {"op": "stats"}, 60.0)["stats"]
+            sched = st["scheduler"]
+            got = worker_launches(sock)
+            others = {k: n for k, n in got.items()
+                      if n and k != "best_match_fused"}
+            if sched["fallbacks"] or sched["completion_errors"] or others \
+                    or (on_card and not got.get("best_match_fused")):
+                raise AssertionError(f"tenancy {w}: fallbacks "
+                                     f"{sched['fallbacks']}, launches {got}")
+            run = "serve" if w == "acme0" else "serve608"
+            launches[(run, "best_match_fused")] = got.get(
+                "best_match_fused", 0)
+        timing["worker_launches"] = {
+            "acme0": launches[("serve", "best_match_fused")],
+            "beta0": launches[("serve608", "best_match_fused")]}
+        timing["children"], summaries = children.finish()
+        out, err = native.communicate(timeout=600)
+        if native.returncode != 0 or "parity OK" not in out:
+            raise AssertionError(f"native selftest: exit "
+                                 f"{native.returncode}: {out} {err[-2000:]}")
+        timing["native"] = out.strip().replace("\n", "; ")
+        timing["resume_s"] = next(
+            (s.get("resume_s") for name, s in summaries.items()
+             if "--selftest-jobs" in name and "--stub" not in name), None)
+    finally:
+        cpu_jobs.close()
+        children.stop()
+        if native.poll() is None:
+            native.kill()
+            native.communicate()
+        if fleet.poll() is None:
+            fleet.terminate()
+            try:
+                fleet.wait(timeout=120)
+            except subprocess.TimeoutExpired:
+                fleet.kill()
+                fleet.wait()
+        fleet_log.close()
+    if fleet.returncode != 0 or os.path.exists(front):
+        raise AssertionError(f"the tenant fleet's stop: exit "
+                             f"{fleet.returncode}, front socket left: "
+                             f"{os.path.exists(front)}")
+
+    def fmt(x):
+        return "not measured" if x is None else f"{x:.3f} s"
+
+    log(f"jobs timing: {card}; " + "; ".join(
+        f"job ({n}) {j['rows']} rows, {j['stripes']} stripe(s): "
+        f"{j['rows_per_s']:.1f} rows/s over submit->completed "
+        f"({j['seconds']:.3f} s; the runner {j['runner_s']:.3f} s), "
+        f"launches {json.dumps(j['launches'])}"
+        for n, j in timing["jobs"].items())
+        + f"; resume (the real --selftest-jobs drill, fleet B's boot to "
+        f"the resumed job's completion) {fmt(timing['resume_s'])}; roll "
+        f"{timing['roll_s']:.3f} s; boot {timing['boot_s']:.3f} s (two "
+        f"pools of one worker); " + "; ".join(
+            f"{run}: {r['requests']} requests, {r['requests_per_s']:.1f} "
+            f"req/s, p50 {r['p50_ms']:.3f} p99 {r['p99_ms']:.3f} ms"
+            for run, r in timing["runs"].items())
+        + f"; K1 launches acme0 {timing['worker_launches']['acme0']} / "
+        f"beta0 {timing['worker_launches']['beta0']}; selftests "
+        + ", ".join(f"{n}: {t:.1f} s" for n, t in
+                    timing["children"].items()))
+    log(f"tenancy: {timing['native']} (host CPU)")
+    log(f"tenancy: phase 12 took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "timing": timing}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4163,12 +4693,16 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += phase_k5(np, torch, args.seed, sm_clocks_per_s)
     log(f"phase 10's K5 took {time.perf_counter() - t0:.1f} s")
-    launches = phase_slice(np, torch, args.seed)
-    serve = phase_serve(np, torch, args.seed)
-    launches.update(serve["launches"])
-    fleet = phase_fleet(np, torch, args.seed, refs=serve["refs"])
-    for key, n in fleet["launches"].items():
-        launches[key] = launches.get(key, 0) + n
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+        launches, inputs = phase_slice(np, torch, args.seed, root)
+        serve = phase_serve(np, torch, args.seed)
+        launches.update(serve["launches"])
+        fleet = phase_fleet(np, torch, args.seed, refs=serve["refs"])
+        tenancy = phase_tenancy(np, torch, args.seed, inputs=inputs,
+                                refs=serve["refs"])
+    for phase in (fleet, tenancy):
+        for key, n in phase["launches"].items():
+            launches[key] = launches.get(key, 0) + n
     for row in rows:
         row["launches"] = launches.get(
             (row.pop("slice_run"), row["name"].split("@")[0]), 0)

@@ -77,9 +77,12 @@ behind one routed front socket and an optional HTTP edge
 `stats`, `traces`, `slo`, `top` and `alerts` read a worker or a fleet's
 front door (the metrics store, the trace collector and the anomaly
 watchdog live in the router: `obs/tsdb.py`, `obs/collect.py`,
-`obs/anomaly.py`).  The tenancy and jobs tiers (`fleet --tenants`,
-`--jobs-dir`, `--selftest-jobs`, `--selftest-tenant`) and the `jobs`
-verb wait for a later slice (ROADMAP A).
+`obs/anomaly.py`).  `fleet --tenants` serves several tenants, one
+worker pool each on its own corpus, with self-serve corpus onboarding
+on the edge's ``POST /corpus`` (`tenancy/`); `fleet --jobs-dir` adds the
+durable jobs tier behind ``POST /jobs`` (`jobs/executor.py`), whose jobs
+run as `batch-detect` stripes on the fleet's ``--device``, and the
+`jobs` verb submits and tracks them over the edge (`jobs/client.py`).
 """
 
 from __future__ import annotations
@@ -1863,9 +1866,153 @@ def cmd_top(args) -> int:
             return 0
 
 
-_NOT_PORTED = (
-    "the tenancy and jobs tiers (tenancy/, jobs/) are not ported yet"
-)
+def _jobs_option_value(value: str):
+    # the jobs spec carries typed option values; the CLI gets strings.
+    # Numbers coerce, everything else rides as-is — the edge's
+    # validate_spec is the authority and answers 400 with a reason
+    for kind in (int, float):
+        try:
+            return kind(value)
+        except ValueError:
+            continue
+    return value
+
+
+def cmd_jobs(args) -> int:
+    """Client for the durable jobs tier: submit a manifest (or a local
+    archive) as an async striped batch-detect job over a fleet's HTTP
+    edge (jobs/executor.py behind POST /jobs), then poll its lifecycle,
+    fetch the merged results, or cancel it."""
+    from licensee_tpu_torch.jobs.client import JobsClient, JobsClientError
+
+    if args.action != "submit" and not args.job_id:
+        print(f"error: jobs {args.action} needs a JOB_ID", file=sys.stderr)
+        return 1
+    try:
+        client = JobsClient(
+            args.edge, token=args.token, timeout_s=args.timeout
+        )
+    except OSError as exc:
+        print(f"error: cannot reach {args.edge!r}: {exc}", file=sys.stderr)
+        return 1
+    try:
+        if args.action == "submit":
+            spec: dict = {}
+            if args.manifest:
+                try:
+                    with open(args.manifest, encoding="utf-8") as fh:
+                        entries = [
+                            line.strip() for line in fh if line.strip()
+                        ]
+                except OSError as exc:
+                    print(
+                        f"error: cannot read manifest: {exc}",
+                        file=sys.stderr,
+                    )
+                    return 1
+                spec["manifest"] = entries
+            if args.archive:
+                import base64
+
+                try:
+                    with open(args.archive, "rb") as fh:
+                        blob = fh.read()
+                except OSError as exc:
+                    print(
+                        f"error: cannot read archive: {exc}",
+                        file=sys.stderr,
+                    )
+                    return 1
+                spec["archive_b64"] = base64.b64encode(blob).decode("ascii")
+                spec["archive_name"] = os.path.basename(args.archive)
+            if not spec:
+                print(
+                    "error: jobs submit needs --manifest FILE and/or "
+                    "--archive PATH",
+                    file=sys.stderr,
+                )
+                return 1
+            if args.stripes is not None:
+                spec["stripes"] = args.stripes
+            options: dict = {}
+            for kv in args.option or ():
+                key, sep, value = kv.partition("=")
+                if not sep or not key:
+                    print(
+                        f"error: bad --option {kv!r} (want KEY=VALUE)",
+                        file=sys.stderr,
+                    )
+                    return 1
+                options[key] = _jobs_option_value(value)
+            if options:
+                spec["options"] = options
+            if args.idempotency_key:
+                spec["idempotency_key"] = args.idempotency_key
+            code, row = client.submit(spec)
+            if code not in (200, 202):
+                print(
+                    f"error: submit answered {code}: {row}",
+                    file=sys.stderr,
+                )
+                return 1
+            if args.wait:
+                row = client.wait(
+                    row["job_id"], timeout_s=args.wait_timeout
+                )
+            print(json.dumps(row))
+            return 0 if row.get("state") != "failed" else 1
+        if args.action == "status":
+            code, row = client.status(args.job_id)
+            if code != 200:
+                print(
+                    f"error: status answered {code}: {row}",
+                    file=sys.stderr,
+                )
+                return 1
+            print(json.dumps(row))
+            return 0
+        if args.action == "wait":
+            row = client.wait(args.job_id, timeout_s=args.wait_timeout)
+            print(json.dumps(row))
+            return 0 if row.get("state") == "completed" else 1
+        if args.action in ("results", "containers"):
+            fetch = (
+                client.results
+                if args.action == "results"
+                else client.containers
+            )
+            code, payload = fetch(args.job_id)
+            if code != 200:
+                print(
+                    f"error: {args.action} answered {code}: "
+                    f"{payload[:200]!r}",
+                    file=sys.stderr,
+                )
+                return 1
+            if args.output:
+                with open(args.output, "wb") as fh:
+                    fh.write(payload)
+            else:
+                sys.stdout.buffer.write(payload)
+                sys.stdout.buffer.flush()
+            return 0
+        # cancel
+        code, row = client.cancel(args.job_id)
+        if code not in (200, 202):
+            print(
+                f"error: cancel answered {code}: {row}", file=sys.stderr
+            )
+            return 1
+        print(json.dumps(row))
+        return 0
+    except JobsClientError as exc:
+        print(f"error: {exc}", file=sys.stderr)
+        return 1
+    except OSError as exc:
+        print(f"error: edge connection failed: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        client.close()
 
 
 def cmd_fleet(args) -> int:
@@ -1874,17 +2021,9 @@ def cmd_fleet(args) -> int:
     behind one health-checked, load-balanced, hedging front socket
     (fleet/supervisor.py + fleet/router.py) — optionally fronted by
     the HTTP/1.1 keep-alive edge (--http) and federated across hosts
-    over TCP (--federate).  Every worker runs on the card unless
-    --device cpu."""
-    for flag, value in (
-        ("--selftest-jobs", args.selftest_jobs),
-        ("--selftest-tenant", args.selftest_tenant),
-        ("--tenants", args.tenants),
-        ("--jobs-dir", args.jobs_dir),
-    ):
-        if value:
-            print(f"error: {flag}: {_NOT_PORTED}", file=sys.stderr)
-            return 1
+    over TCP (--federate), with one worker pool per tenant (--tenants)
+    and the durable jobs tier (--jobs-dir).  Every worker and every
+    job's stripe runs on the card unless --device cpu."""
     if args.selftest:
         from licensee_tpu_torch.fleet.selftest import selftest
 
@@ -1897,6 +2036,21 @@ def cmd_fleet(args) -> int:
         from licensee_tpu_torch.fleet.selftest import selftest_tcp
 
         return selftest_tcp(stub=args.stub, device=args.device)
+    if args.selftest_jobs:
+        from licensee_tpu_torch.jobs.selftest import selftest_jobs
+
+        return selftest_jobs(stub=args.stub, device=args.device)
+    if args.selftest_tenant:
+        from licensee_tpu_torch.fleet.selftest import selftest_tenant
+
+        return selftest_tenant(stub=args.stub, device=args.device)
+    if args.jobs_dir and not args.http:
+        print(
+            "error: --jobs-dir needs --http (jobs are submitted over "
+            "the HTTP edge)",
+            file=sys.stderr,
+        )
+        return 1
     if not args.socket and not args.http:
         print("error: need --socket PATH|HOST:PORT (the client-facing "
               "front door) and/or --http HOST:PORT, or --selftest",
@@ -1915,10 +2069,20 @@ def cmd_fleet(args) -> int:
                 file=sys.stderr,
             )
             return 1
+    if args.tenants and args.federate:
+        print(
+            "error: --tenants supervises local worker pools and cannot "
+            "combine with --federate (put the registry on each member "
+            "fleet instead)",
+            file=sys.stderr,
+        )
+        return 1
     from licensee_tpu_torch.fleet.router import FrontServer, Router
     from licensee_tpu_torch.fleet.supervisor import Supervisor
 
     supervisor = None
+    registry = None
+    onboarder = None
     if args.federate:
         # the cross-host FRONT tier: every backend is another fleet's
         # front door (usually host:port); no local workers to spawn
@@ -1958,34 +2122,107 @@ def cmd_fleet(args) -> int:
             ("--cache-entries", args.cache_entries),
             ("--cache-bytes", args.cache_bytes),
             ("--trace-sample", args.trace_sample),
-            ("--corpus", args.corpus),
+            # every worker of every pool, respawned and rolled ones too,
+            # keeps the fleet's device in its argv
             ("--device", args.device),
         ):
             if value is not None:
                 serve_args += [flag, str(value)]
-        workers = {
-            f"w{i}": os.path.join(socket_dir, f"w{i}.sock")
-            for i in range(args.workers)
-        }
-        supervisor = Supervisor(
-            workers,
-            chips_per_worker=args.chips_per_worker,
-            serve_args=tuple(serve_args),
-            backoff_base_s=args.restart_backoff_ms / 1000.0,
-            probe_interval_s=args.probe_interval_ms / 1000.0,
-        )
-        router = Router(
-            workers,
-            supervisor=supervisor,
-            hedge_ms=None if hedge_ms == "off" else hedge_ms,
-            probe_interval_s=args.probe_interval_ms / 1000.0,
-            pool_per_worker=args.pool_per_worker,
-        )
-        print(
-            f"fleet: {args.workers} workers under {socket_dir}, "
-            f"front door {args.socket or args.http}",
-            file=sys.stderr,
-        )
+        if args.tenants:
+            # the multi-tenant topology: one supervisor per pool (each
+            # with its own probe thread, restart backoff, and reload
+            # lock), corpus per pool from the registry, the whole set
+            # behind one router that routes by resolved corpus tag
+            from licensee_tpu_torch.tenancy import (
+                CorpusOnboarder, RegistryError, TenantPools, TenantRegistry,
+            )
+
+            try:
+                registry = TenantRegistry(args.tenants)
+            except RegistryError as exc:
+                print(f"error: {exc}", file=sys.stderr)
+                return 1
+            pool_tenants = registry.pools()
+            if not pool_tenants:
+                print(
+                    f"error: {args.tenants!r} defines no tenants",
+                    file=sys.stderr,
+                )
+                registry.close()
+                return 1
+            tenants = registry.tenants()
+            pool_sups = {}
+            for pool, names in pool_tenants.items():
+                pool_workers = {
+                    f"{pool}{i}": os.path.join(
+                        socket_dir, f"{pool}{i}.sock"
+                    )
+                    for i in range(args.workers)
+                }
+                # co-tenants of one pool share its corpus by
+                # definition; the first (sorted) tenant's binding is it
+                corpus = tenants[names[0]].corpus
+                pool_sups[pool] = Supervisor(
+                    pool_workers,
+                    chips_per_worker=args.chips_per_worker,
+                    serve_args=tuple(serve_args + ["--corpus", corpus]),
+                    backoff_base_s=args.restart_backoff_ms / 1000.0,
+                    probe_interval_s=args.probe_interval_ms / 1000.0,
+                )
+            supervisor = pools = TenantPools(
+                pool_sups, default_pool=registry.default_pool
+            )
+            router = Router(
+                pools.workers,
+                supervisor=pools,
+                hedge_ms=None if hedge_ms == "off" else hedge_ms,
+                probe_interval_s=args.probe_interval_ms / 1000.0,
+                pool_per_worker=args.pool_per_worker,
+                pools=pools.worker_pools(),
+                default_pool=pools.default_pool,
+            )
+            onboarder = CorpusOnboarder(
+                registry, pools, router,
+                staging_dir=os.path.join(socket_dir, "staging"),
+                reload_kwargs={
+                    "timeout_s": 120.0,
+                    "health_timeout_s": args.boot_timeout,
+                },
+            )
+            onboarder.sync_routes()
+            print(
+                f"fleet: {len(pool_sups)} tenant pool(s) "
+                f"({', '.join(sorted(pool_sups))}) x {args.workers} "
+                f"worker(s) under {socket_dir}, front door "
+                f"{args.socket or args.http}",
+                file=sys.stderr,
+            )
+        else:
+            workers = {
+                f"w{i}": os.path.join(socket_dir, f"w{i}.sock")
+                for i in range(args.workers)
+            }
+            if args.corpus is not None:
+                serve_args += ["--corpus", str(args.corpus)]
+            supervisor = Supervisor(
+                workers,
+                chips_per_worker=args.chips_per_worker,
+                serve_args=tuple(serve_args),
+                backoff_base_s=args.restart_backoff_ms / 1000.0,
+                probe_interval_s=args.probe_interval_ms / 1000.0,
+            )
+            router = Router(
+                workers,
+                supervisor=supervisor,
+                hedge_ms=None if hedge_ms == "off" else hedge_ms,
+                probe_interval_s=args.probe_interval_ms / 1000.0,
+                pool_per_worker=args.pool_per_worker,
+            )
+            print(
+                f"fleet: {args.workers} workers under {socket_dir}, "
+                f"front door {args.socket or args.http}",
+                file=sys.stderr,
+            )
     from licensee_tpu_torch.serve.server import SocketInUseError
 
     if supervisor is not None:
@@ -1996,11 +2233,48 @@ def cmd_fleet(args) -> int:
                 file=sys.stderr,
             )
             supervisor.stop()
+            if registry is not None:
+                registry.close()
             return 1
     router.start()
+    if onboarder is not None:
+        # replay rolls a crash interrupted: a journaled roll_start with
+        # no terminal record re-validates and re-rolls at boot
+        for row in onboarder.recover():
+            print(f"fleet: recovered roll {json.dumps(row)}",
+                  file=sys.stderr)
+    executor = None
+    if args.jobs_dir:
+        # the durable jobs tier: journal-backed executor sharing the
+        # router's metrics registry, its trace tail joined into the
+        # collector so edge submit -> executor -> stripe spans
+        # assemble under one trace ID; its stripes run on --device
+        from licensee_tpu_torch.jobs.executor import JobExecutor
+
+        executor = JobExecutor(
+            args.jobs_dir,
+            max_concurrent=args.jobs_concurrency,
+            registry=router.obs.registry,
+            device=args.device,
+        )
+        executor.start()
+        router.collector.add_source("jobs", executor.trace_tail)
+        resumed = executor.resumed_jobs
+        print(
+            f"fleet: jobs executor over {args.jobs_dir} "
+            f"(concurrency {args.jobs_concurrency}"
+            + (f", resumed {resumed} job(s)" if resumed else "")
+            + ")",
+            file=sys.stderr,
+        )
     edge_tokens = None
+    if registry is not None:
+        # the registry's bearer tokens authenticate the edge, and the
+        # edge's client label IS the tenant name — that identity is
+        # what POST /corpus and per-tenant routing key off
+        edge_tokens = dict(registry.tokens())
     if args.edge_token:
-        edge_tokens = {}
+        edge_tokens = edge_tokens if edge_tokens is not None else {}
         for spec in args.edge_token:
             name, sep, tok = spec.partition("=")
             if sep and name and tok:
@@ -2014,13 +2288,13 @@ def cmd_fleet(args) -> int:
         if args.http:
             from licensee_tpu_torch.fleet.http_edge import HttpEdgeServer
 
-            # no jobs executor and no tenancy onboarder: /jobs* and
-            # POST /corpus answer the edge's own 503 bodies
             edge = HttpEdgeServer(
                 args.http, router,
                 tokens=edge_tokens,
                 rate_per_client=args.edge_rate,
                 burst=args.edge_burst,
+                jobs=executor,
+                tenancy=onboarder,
             )
             print(
                 f"fleet: HTTP edge on {args.http}"
@@ -2032,9 +2306,13 @@ def cmd_fleet(args) -> int:
         for srv in (server, edge):
             if srv is not None:
                 srv.server_close()
+        if executor is not None:
+            executor.close()
         router.close()
         if supervisor is not None:
             supervisor.stop()
+        if registry is not None:
+            registry.close()
         return 1
     # long-lived serving process: the boot-time heap (imports, corpus,
     # supervisor state) never becomes garbage, but untuned gen2 GC
@@ -2085,9 +2363,15 @@ def cmd_fleet(args) -> int:
                 os.unlink(args.socket)
             except OSError:
                 pass
+        if executor is not None:
+            # running jobs re-journal as queued and resume on the next
+            # --jobs-dir boot; the journal keeps the durable state
+            executor.close()
         router.close()
         if supervisor is not None:
             supervisor.stop()
+        if registry is not None:
+            registry.close()
         if args.stats:
             print(json.dumps(router.stats()), file=sys.stderr)
     return 0
@@ -2132,6 +2416,7 @@ COMMANDS = (
     ("top", "Live fleet dashboard from the retained telemetry store"),
     ("alerts", "Show the anomaly watchdog's active alerts and history"),
     ("fleet", "Supervise N serve workers behind one routed socket"),
+    ("jobs", "Submit and track durable striped jobs over the HTTP edge"),
 )
 _COMMAND_HELP = dict(COMMANDS)
 
@@ -2966,29 +3251,57 @@ def build_parser() -> argparse.ArgumentParser:
     fleet.add_argument(
         "--selftest-jobs", action="store_true",
         help=(
-            "Not ported yet: exits 1 (the tenancy and jobs tiers "
-            "come with a later slice)"
+            "Run the durable-jobs selftest: a fleet with --jobs-dir "
+            "takes a tar-manifest job over POST /jobs, the whole "
+            "process tree is SIGKILLed mid-drain, a second boot on "
+            "the same jobs dir replays the journal and resumes from "
+            "the stripe shards, and the merged results must be "
+            "byte-identical to a direct batch-detect --stripes run "
+            "with zero client-visible errors and an assembled "
+            "edge+executor+stripe trace; exit 0/1"
         ),
     )
     fleet.add_argument(
         "--selftest-tenant", action="store_true",
         help=(
-            "Not ported yet: exits 1 (the tenancy and jobs tiers "
-            "come with a later slice)"
+            "Run the multi-tenant serving selftest: two tenants with "
+            "disjoint corpora on separate worker pools behind one "
+            "router and HTTP edge — tagged corpus routing, an "
+            "authenticated POST /corpus upload+roll of tenant A under "
+            "tenant B's live traffic (B's latency SLO must hold), "
+            "SIGKILL failover confined to one pool, 401/403/400 auth "
+            "probes, and journal crash recovery, with ZERO cross-"
+            "tenant rows; exit 0/1"
         ),
     )
     fleet.add_argument(
         "--tenants", default=None, metavar="FILE",
         help=(
-            "Not ported yet: exits 1 (the tenancy and jobs tiers "
-            "come with a later slice)"
+            "Serve multi-tenant: FILE is the tenant registry JSON "
+            "(token -> corpus -> pool); the fleet boots one worker "
+            "pool per registry pool (--workers workers EACH, on that "
+            "pool's corpus), routes requests by corpus tag / bearer "
+            "token, and serves self-serve corpus onboarding on "
+            "POST /corpus (needs --http for the authenticated edge)"
         ),
     )
     fleet.add_argument(
         "--jobs-dir", default=None, metavar="DIR",
         help=(
-            "Not ported yet: exits 1 (the tenancy and jobs tiers "
-            "come with a later slice)"
+            "Serve the durable jobs tier (POST /jobs on the HTTP "
+            "edge): an append-only journal plus per-job stripe shards "
+            "under DIR — a SIGKILLed fleet rebooted on the same DIR "
+            "replays the journal and resumes interrupted jobs from "
+            "their shards.  Needs --http"
+        ),
+    )
+    fleet.add_argument(
+        "--jobs-concurrency", type=bounded(int, 1), default=1,
+        metavar="N",
+        help=(
+            "How many jobs may run their stripe trees at once "
+            "(default 1; each job already fans out --stripes worker "
+            "processes)"
         ),
     )
     fleet.add_argument(
@@ -3009,6 +3322,84 @@ def build_parser() -> argparse.ArgumentParser:
         ),
     )
     fleet.set_defaults(func=cmd_fleet)
+
+    jobs = sub.add_parser("jobs", help=_COMMAND_HELP["jobs"])
+    jobs.add_argument(
+        "action",
+        choices=["submit", "status", "results", "containers", "cancel",
+                 "wait"],
+        help=(
+            "submit a job spec, poll one job's lifecycle status, "
+            "fetch its merged results JSONL / container-verdict "
+            "sidecar, cancel it, or block until it reaches a "
+            "terminal state"
+        ),
+    )
+    jobs.add_argument(
+        "job_id", nargs="?", default=None,
+        help="The job id every action but submit operates on",
+    )
+    jobs.add_argument(
+        "--edge", required=True, metavar="HOST:PORT",
+        help="The fleet's HTTP edge (a `fleet --http --jobs-dir` door)",
+    )
+    jobs.add_argument(
+        "--token", default=None,
+        help="Bearer token for an --edge-token protected edge",
+    )
+    jobs.add_argument(
+        "--manifest", default=None, metavar="FILE",
+        help=(
+            "Submit this manifest (one entry per line; plain paths or "
+            "the ingest grammar — tar::MEMBER, zip::MEMBER, "
+            "repo.git::REV, * globs)"
+        ),
+    )
+    jobs.add_argument(
+        "--archive", default=None, metavar="PATH",
+        help=(
+            "Upload this local tar/zip with the submit (base64 in the "
+            "spec body); without --manifest the job classifies every "
+            "member (ARCHIVE::*)"
+        ),
+    )
+    jobs.add_argument(
+        "--stripes", type=bounded(int, 1), default=None, metavar="N",
+        help="Worker processes the job's batch-detect fans out to",
+    )
+    jobs.add_argument(
+        "--option", action="append", default=None, metavar="KEY=VALUE",
+        help=(
+            "Forwarded batch-detect knob (repeatable): batch_size, "
+            "workers, mesh, mode, corpus, method, confidence"
+        ),
+    )
+    jobs.add_argument(
+        "--idempotency-key", default=None, metavar="KEY",
+        help=(
+            "Duplicate-submit fence: a resubmit carrying the same key "
+            "answers the original job id instead of minting a new job"
+        ),
+    )
+    jobs.add_argument(
+        "--wait", action="store_true",
+        help="With submit: block until the job is terminal",
+    )
+    jobs.add_argument(
+        "--wait-timeout", type=bounded(float, 0.001), default=600.0,
+        metavar="SECS",
+        help="How long wait/--wait polls before giving up (default 600)",
+    )
+    jobs.add_argument(
+        "--timeout", type=bounded(float, 0.001), default=30.0,
+        metavar="SECS",
+        help="Per-round-trip edge timeout in seconds (default 30)",
+    )
+    jobs.add_argument(
+        "--output", default=None, metavar="PATH",
+        help="Write results/containers bytes here instead of stdout",
+    )
+    jobs.set_defaults(func=cmd_jobs)
 
     if set(sub.choices) != {name for name, _ in COMMANDS}:
         raise AssertionError(

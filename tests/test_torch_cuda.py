@@ -924,3 +924,147 @@ def test_fleet_sigkilled_worker_comes_back_on_the_card(card_fleet):
     kill = card_fleet["timing"]["kill"]
     assert kill["restarts"] == 1
     assert card_fleet["timing"]["victim_k1_launches"] > 0
+
+
+# -- the jobs and tenancy tiers on the card -------------------------------------
+
+
+def job_inputs(root, T):
+    """A manifest of license texts of the corpus at width T (the vendored
+    templates at T=47, the synthetic SPDX directory's at T=608), each
+    with a marker that keeps it off the Exact prefilter; and the corpus
+    option naming the directory."""
+    from licensee_tpu_torch.corpus.license import License
+    from licensee_tpu_torch.corpus.spdx import load_spdx_dir
+
+    if T == 47:
+        texts = [lic.content for lic in License.all(hidden=True)
+                 if lic.content]
+        options = {}
+    else:
+        spdx_dir = synth_spdx_dir(str(root / "spdx"), T, 0)
+        texts = [t.content for t in load_spdx_dir(spdx_dir)][:200]
+        options = {"corpus": spdx_dir, "method": "matmul"}
+    paths = []
+    for i, text in enumerate(texts):
+        path = root / f"LICENSE_{i}"
+        path.write_text(f"{text}\nzqjob{i}\n")
+        paths.append(str(path))
+    return paths, options
+
+
+def run_job(root, device, spec, **kwargs):
+    """One job through a `JobExecutor` on ``device``: (status row, results
+    bytes or None, the merged exposition's kernel launches)."""
+    import time
+
+    from licensee_tpu_torch.jobs.executor import (
+        TERMINAL_STATES,
+        JobExecutor,
+        validate_spec,
+    )
+
+    normalized, reason = validate_spec(spec)
+    assert reason is None
+    ex = JobExecutor(str(root), device=device, **kwargs)
+    ex.start()
+    try:
+        job, _ = ex.submit(normalized)
+        deadline = time.monotonic() + 600
+        while ex.status(job.job_id)["state"] not in TERMINAL_STATES:
+            assert time.monotonic() < deadline
+            time.sleep(0.1)
+        row = ex.status(job.job_id)
+    finally:
+        ex.close()
+    path = ex.results_path(job.job_id)
+    if path is None:
+        return row, None, {}
+    launches = {}
+    with open(f"{path}.prom", encoding="utf-8") as f:
+        for line in f:
+            if line.startswith("device_kernel_launches{"):
+                kernel = line.split('kernel="')[1].split('"')[0]
+                launches[kernel] = launches.get(kernel, 0) + int(
+                    float(line.split()[-1]))
+    with open(path, "rb") as f:
+        return row, f.read(), launches
+
+
+@pytest.mark.parametrize("T, kernel", [(47, "best_match_fused"),
+                                       (608, "overlap_pairs_mma")])
+def test_job_on_the_card_matches_cpu(card, tmp_path, T, kernel):
+    """A 2-stripe job on the card gives the bytes of the same job on the
+    CPU, and its stripes launched only the kernel its options route to:
+    K1 at T=47 by default, K2 at T=608 under `method: matmul`."""
+    paths, options = job_inputs(tmp_path, T)
+    spec = {"manifest": paths, "stripes": 2, "options": options}
+    row, got, launches = run_job(tmp_path / "card", "cuda", spec)
+    _row, want, _ = run_job(tmp_path / "cpu", "cpu", spec)
+    assert row["state"] == "completed" and got == want
+    assert len(got.splitlines()) == len(paths)
+    assert launches.get(kernel, 0) > 0
+    assert {k for k, n in launches.items() if n} == {kernel}
+
+
+def test_job_whose_stripe_cannot_open_the_card_fails(card, tmp_path):
+    """A stripe child that sees no card exits non-zero and the job lands
+    in `failed` with its error: it is never rerun on the CPU."""
+    paths, _options = job_inputs(tmp_path, 47)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "PYTHONPATH": REPO}
+    row, got, _ = run_job(tmp_path / "jobs", "cuda",
+                          {"manifest": paths[:4]}, base_env=env)
+    assert row["state"] == "failed" and got is None
+    assert "CUDA" in row["error"]
+
+
+def test_tenant_pool_worker_on_the_card_answers_its_fingerprint(
+        card, tmp_path):
+    """One tenant pool of one `serve` worker on the card behind a
+    pool-aware router: a tagged classify lands on the pool's worker,
+    stamps the pool's corpus fingerprint and launches K1."""
+    from licensee_tpu_torch.corpus.artifact import (
+        corpus_fingerprint,
+        short_fingerprint,
+    )
+    from licensee_tpu_torch.fleet.router import Router
+    from licensee_tpu_torch.fleet.supervisor import Supervisor
+    from licensee_tpu_torch.fleet.wire import oneshot
+    from licensee_tpu_torch.tenancy import (
+        CorpusOnboarder,
+        Tenant,
+        TenantPools,
+        TenantRegistry,
+    )
+
+    sock = str(tmp_path / "acme0.sock")
+    pools = TenantPools({"acme": Supervisor(
+        {"acme0": sock}, serve_args=("--device", "cuda", "--corpus",
+                                     "vendored"))})
+    registry = TenantRegistry(str(tmp_path / "tenants.json"), create=True)
+    registry.set_tenant(Tenant("acme", "tok-acme", "vendored"))
+    fp = corpus_fingerprint(default_corpus())
+    try:
+        pools.start()
+        assert pools.wait_healthy(300.0), pools.status()
+        with Router(pools.workers, supervisor=pools,
+                    pools=pools.worker_pools(), default_pool="acme",
+                    request_timeout_s=60.0) as router:
+            CorpusOnboarder(registry, pools, router,
+                            staging_dir=str(tmp_path / "staging")
+                            ).sync_routes(fingerprints={"acme": fp})
+            text = (open(os.path.join(FIXTURES, "mit", "LICENSE.txt"))
+                    .read() + "\nzqtenant\n")
+            row = router.dispatch({"id": 1, "content": text,
+                                   "corpus": "acme"})
+            assert row.get("worker") == "acme0" and row["key"] == "mit", row
+            assert row["corpus"] in (fp, short_fingerprint(fp))
+            text = oneshot(sock, {"op": "stats", "format": "prometheus"},
+                           60.0)["prometheus"]
+            import re
+
+            assert re.search(r'^device_kernel_launches\{[^}]*kernel='
+                             r'"best_match_fused"[^}]*\} [1-9]', text, re.M)
+    finally:
+        pools.stop()
+        registry.close()

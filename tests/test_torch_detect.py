@@ -269,10 +269,10 @@ def test_help_matches_jax():
     port_lines = {line.split()[1]: line for line in out.splitlines()[1:]}
     assert {"detect", "diff", "license-path", "version", "help",
             "batch-detect", "corpus-build", "serve", "stats", "traces",
-            "slo", "top", "alerts", "fleet"} == set(port_lines)
+            "slo", "top", "alerts", "fleet", "jobs"} == set(port_lines)
     for verb in ("detect", "diff", "license-path", "version", "help",
                  "corpus-build", "serve", "stats", "traces", "slo", "top",
-                 "alerts", "fleet"):
+                 "alerts", "fleet", "jobs"):
         assert port_lines[verb].replace("licensee-tpu-torch",
                                         "licensee-tpu") == jax_lines[verb]
     for verb in ("detect", "diff", "license-path", "version", "help",

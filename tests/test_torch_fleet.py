@@ -12,8 +12,9 @@ and refusals.  What depends on timing (trace IDs, latencies, how many
 requests were in flight at a kill) is masked or reduced to the fact the
 scenario is about.  The HTTP edge's answers are compared byte for byte
 (status line, headers, body; trace IDs and fingerprints masked), the two
-503s of the tiers the port does not have yet included, and the `fleet`
-verb's refusals against the JAX CLI's.  Every test runs under the
+503s of an edge built without the jobs and tenancy tiers included, and
+the `fleet` verb's argument errors and its tenancy and jobs flags
+against the JAX CLI's.  Every test runs under the
 lock-order sanitizer, as the JAX package's fleet tests do."""
 
 from __future__ import annotations
@@ -697,11 +698,63 @@ def run(main, argv):
     ["--jobs-dir", "jobs", "--http", "127.0.0.1:0"],
     ["--selftest-jobs", "--stub"],
     ["--selftest-tenant", "--stub"],
+    ["--jobs-dir", "jobs", "--socket", "f.sock"],
+    ["--tenants", "reg.json", "--federate", "h:1", "--socket", "f.sock"],
+    ["--tenants", "empty.json", "--socket", "f.sock"],
+    ["--tenants", "two.json", "--http", "127.0.0.1:0", "--jobs-dir", "jobs"],
 ])
-def test_fleet_refuses_the_tiers_not_ported(flags):
-    rc, out, err = run(port_main, ["fleet", *flags])
-    assert rc == 1 and not out
-    assert "not ported yet" in err and flags[0] in err
+def test_fleet_tiers_match_jax(tmp_path, monkeypatch, flags):
+    """The tenancy and jobs flags of `fleet` against the JAX CLI's: a
+    missing or empty registry, `--jobs-dir` without `--http` and
+    `--tenants` with `--federate` answer the same errors; a fleet with a
+    jobs dir (its workers' boot stubbed to fail in both packages) stops
+    at the same point; the selftest flags reach each package's selftest
+    with ``stub`` (the port's with ``device``, default cuda)."""
+    import licensee_tpu.fleet.selftest as jax_fleet_selftest
+    import licensee_tpu.jobs.selftest as jax_jobs_selftest
+    import licensee_tpu_torch.fleet.selftest as port_fleet_selftest
+    import licensee_tpu_torch.jobs.selftest as port_jobs_selftest
+
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "empty.json").write_text('{"version": 1, "tenants": {}}')
+    (tmp_path / "two.json").write_text(json.dumps({"version": 1, "tenants": {
+        "acme": {"token": "t-a", "corpus": "vendored"},
+        "beta": {"token": "t-b", "corpus": "spdx"}}}))
+    calls = []
+    for module, name in ((jax_jobs_selftest, "selftest_jobs"),
+                         (jax_fleet_selftest, "selftest_tenant"),
+                         (port_jobs_selftest, "selftest_jobs"),
+                         (port_fleet_selftest, "selftest_tenant")):
+        monkeypatch.setattr(module, name, lambda _n=name, **kw: (
+            calls.append((_n, kw)), 0)[1])
+
+    def fail_boot(side):
+        class NoBoot(side.Supervisor):
+            def start(self):
+                pass
+
+            def wait_healthy(self, timeout):
+                return False
+
+            def status(self):
+                return {}
+
+        monkeypatch.setattr(sys.modules[side.Supervisor.__module__],
+                            "Supervisor", NoBoot)
+
+    fail_boot(JAX)
+    fail_boot(PORT)
+    # the socket directory is a fresh temporary one in each run
+    want, got = (tuple(re.sub(r"licensee-fleet-\w+", "D", part)
+                       if isinstance(part, str) else part
+                       for part in run(main, ["fleet", *flags]))
+                 for main in (jax_main, port_main))
+    assert got == want
+    if flags[0].startswith("--selftest"):
+        assert want[0] == 0 and calls[0][1] == {"stub": True}
+        assert calls[1][1] == {"stub": True, "device": "cuda"}
+    else:
+        assert want[0] == 1 and "error: " in want[2]
 
 
 @pytest.mark.parametrize("flags", [
