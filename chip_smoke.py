@@ -151,7 +151,14 @@ Run from the root of a checkout on a machine with a CUDA card.  Phases:
    repeat the card, (1,1), (2,1), (1,2) and (2,2) at B=4096, T=47 and
    T=608, top-1 and top-3, bit-identical to the plain scorer with one K1
    launch a data shard or one K2 launch a (data, model) block, the
-   (2,2) mesh timed beside its bound; then, reusing phases 4, 5 and 7's
+   (2,2) mesh timed beside its bound; the graft entry
+   (`graft_entry.py`): `entry()`'s one `best_match_fused` launch over 64
+   rendered templates (T=47) bit-identical to its plain version and to
+   `dice_ref.best_match`, timed beside K1's bound, `dryrun_multichip(1)`,
+   `(2)` and `(4)` on meshes that repeat the card (K5 over K1, then over
+   K2 lane slices), each agreeing batch for batch with every blob on the
+   device path, and `bin/licensee-tpu-torch version` as a child; then,
+   reusing phases 4, 5 and 7's
    manifests and outputs: `batch-detect --mesh 1,1` and `--device-lanes
    1` against the default run at both widths; a `serve --mesh 1,1`
    session against a device='cpu' batcher; phase 7's 2,000 archives
@@ -241,8 +248,9 @@ workers' gauges, read before the kill, before the roll (T=47) and at the
 end, and phase 12's tenant workers' (acme's at T=47 on both of its
 corpora, beta's at T=608); the main rows also phase 12's jobs' stripes,
 job (a)'s K1 at T=47 and job (b)'s K2 at T=608; K5's rows: phase 10's
-`--mesh 1,1` runs); the planes kernel (`score_pairs_fused`) launches on
-no main path.
+`--mesh 1,1` runs; at T=47 K1's, K2's and K5's main rows also the graft
+entry's step and dry runs); the planes kernel (`score_pairs_fused`)
+launches on no main path.
 
 The last line of stdout is ``{"ok": true, "device": {...}}``; the line
 before it the JSON of every kernel's numbers.  Any failure exits
@@ -2086,6 +2094,104 @@ def phase_k5(np, torch, seed: int, sm_clocks_per_s: float) -> list[dict]:
         del ct, feats, num, den, top_k, wants, fn22, fn11
         torch.cuda.empty_cache()
     return rows
+
+
+# the graft entry's dry runs: meshes of 1, 2 and 4 devices, which repeat
+# the card ((1, 1) through K1; (1, 2) and (2, 2) through K2 lane slices)
+GRAFT_MESHES = (1, 2, 4)
+
+
+def phase_graft(torch, sm_clocks_per_s: float) -> dict:
+    """Phase 10's graft entry (`licensee_tpu_torch/graft_entry.py`):
+    `entry()`'s scoring step (64 rendered templates over the vendored
+    corpus, T=47, W=112) must launch `best_match_fused` once and agree
+    bit for bit with `best_match_fused_plain` and `dice_ref.best_match`;
+    it is timed beside K1's bound.  `dryrun_multichip(n)` for n in
+    `GRAFT_MESHES`, on meshes that repeat the card, must agree batch for
+    batch with every blob on the device path, each sharded call (K5)
+    launching one K1 a data row (one model shard) or one K2 a (data,
+    model) block and nothing else.  `bin/licensee-tpu-torch version`
+    runs as a child that must import none of JAX, PyYAML or the JAX
+    package.  Returns the entry's and the dry runs' launches by (run,
+    kernel)."""
+    from licensee_tpu_torch import graft_entry
+    from licensee_tpu_torch.convert import corpus_tensors
+    from licensee_tpu_torch.corpus.compiler import default_corpus
+    from licensee_tpu_torch.kernels import dice_cuda, dice_ref
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+
+    def counted(fn):
+        """``fn()`` between a reset of the counts and a read; its launches
+        join the vendored width's."""
+        torch.cuda.synchronize()
+        dice_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: c for n, c in dice_cuda.LAUNCHES.items() if c}
+        for n, c in got.items():
+            launches["vendored", n] = launches.get(("vendored", n), 0) + c
+        return out, got
+
+    fn, args = graft_entry.entry()
+    got, n_launched = counted(lambda: fn(*args))
+    if n_launched != {"best_match_fused": 1}:
+        raise AssertionError(f"graft entry: launched {n_launched}, not one "
+                             "best_match_fused")
+    ct = corpus_tensors(default_corpus(), "cuda")
+    meta = dice_cuda.pack_meta(ct)
+    for name, want in (
+            ("best_match_fused_plain",
+             dice_cuda.best_match_fused_plain(meta, ct.bits, *args)),
+            ("dice_ref.best_match", dice_ref.best_match(ct, *args))):
+        err = max(max_abs_err(torch, g, w) for g, w in zip(got, want))
+        if err or len(got) != len(want):
+            raise AssertionError(f"graft entry: K1 != {name} (max {err})")
+    B, W = args[0].shape
+    T = ct.n_templates
+    n_bytes, ops_ms, how = k1_bound(B, T, W, "best", sm_clocks_per_s)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"graft entry: B={B} T={T} W={W} best_match_fused launched once, "
+        "bit-identical to best_match_fused_plain and dice_ref.best_match; "
+        f"ms={cuda_time_ms(torch, lambda: fn(*args)):.4f} device_ms="
+        f"{graph_time_ms(torch, lambda: fn(*args), 3 * B * 4):.4f} "
+        f"bound_ms={max(bytes_ms, ops_ms):.6f} ("
+        f"{'bytes' if bytes_ms >= ops_ms else 'operations'}; {n_bytes} "
+        f"bytes, {bytes_ms:.6f} ms; {how}); {smi('name,power.limit')}")
+    for n in GRAFT_MESHES:
+        n_model = 2 if n % 2 == 0 else 1
+        n_data = n // n_model
+        rows, got = counted(lambda n=n: graft_entry.dryrun_multichip(n))
+        calls = got.get("make_sharded_scorer", 0)
+        kernel, per_call = (("best_match_fused", n_data) if n_model == 1
+                            else ("overlap_pairs_mma", n_data * n_model))
+        if not calls or got != {"make_sharded_scorer": calls,
+                                kernel: calls * per_call}:
+            raise AssertionError(f"dryrun_multichip({n}): launched {got}")
+        log(f"graft dryrun_multichip({n}): ({n_data},{n_model}) mesh on "
+            f"[cuda:0]*{n}, {len(rows)}/{len(rows)} agree, all on the device "
+            f"path; launches {got}")
+    # the launcher as a child, its imports listed (-X importtime): none
+    # of JAX, PyYAML or the JAX package, whether this host has them or not
+    version = subprocess.run(
+        [sys.executable, "-X", "importtime",
+         os.path.join("bin", "licensee-tpu-torch"), "version"],
+        capture_output=True, text=True, timeout=120)
+    imported = {line.rsplit("|", 1)[-1].strip().split(".")[0]
+                for line in version.stderr.splitlines()
+                if line.startswith("import time:")}
+    if (version.returncode or not version.stdout.strip()
+            or imported & {"jax", "jaxlib", "yaml", "licensee_tpu"}
+            or "licensee_tpu_torch" not in imported):
+        raise AssertionError("bin/licensee-tpu-torch version: rc "
+                             f"{version.returncode}, imported "
+                             f"{sorted(imported)}: {version.stderr[-2000:]}")
+    log(f"graft: bin/licensee-tpu-torch version -> {version.stdout.strip()} "
+        f"(a child that imported {len(imported)} top-level modules, none "
+        "of JAX, PyYAML or the JAX package)")
+    log(f"graft: phase 10's graft entry took {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def mesh_and_lanes(torch, root: str, inputs: dict, launches: dict) -> None:
@@ -4693,6 +4799,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rows += phase_k5(np, torch, args.seed, sm_clocks_per_s)
     log(f"phase 10's K5 took {time.perf_counter() - t0:.1f} s")
+    graft = phase_graft(torch, sm_clocks_per_s)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         launches, inputs = phase_slice(np, torch, args.seed, root)
         serve = phase_serve(np, torch, args.seed)
@@ -4700,8 +4807,8 @@ def main() -> int:
         fleet = phase_fleet(np, torch, args.seed, refs=serve["refs"])
         tenancy = phase_tenancy(np, torch, args.seed, inputs=inputs,
                                 refs=serve["refs"])
-    for phase in (fleet, tenancy):
-        for key, n in phase["launches"].items():
+    for counts in (fleet["launches"], tenancy["launches"], graft):
+        for key, n in counts.items():
             launches[key] = launches.get(key, 0) + n
     for row in rows:
         row["launches"] = launches.get(

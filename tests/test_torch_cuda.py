@@ -1068,3 +1068,47 @@ def test_tenant_pool_worker_on_the_card_answers_its_fingerprint(
     finally:
         pools.stop()
         registry.close()
+
+
+def test_graft_entry_on_the_card_is_one_k1_launch(card):
+    """`graft_entry.entry()`'s step launches `best_match_fused` once and
+    gives the triples of its plain version and of `dice_ref.best_match`."""
+    from licensee_tpu_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    torch.cuda.synchronize()
+    dice_cuda.reset_launches()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert {n: c for n, c in dice_cuda.LAUNCHES.items() if c} == {
+        "best_match_fused": 1}
+    ct = convert.corpus_tensors(default_corpus(), card)
+    for want in (dice_cuda.best_match_fused_plain(dice_cuda.pack_meta(ct),
+                                                  ct.bits, *args),
+                 dice_ref.best_match(ct, *args)):
+        for g, w in zip(got, want, strict=True):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n_devices", [1, 2, 4])
+def test_graft_dryrun_multichip_on_the_card(card, n_devices):
+    """`dryrun_multichip(n)` on a mesh that repeats the card: every blob
+    on the device path and right, through K5 over K1 (one model shard)
+    or K2 lane slices, with no other kernel."""
+    from licensee_tpu_torch import graft_entry
+
+    n_model = 2 if n_devices % 2 == 0 else 1
+    n_data = n_devices // n_model
+    torch.cuda.synchronize()
+    dice_cuda.reset_launches()
+    rows = graft_entry.dryrun_multichip(n_devices)
+    torch.cuda.synchronize()
+    got = {n: c for n, c in dice_cuda.LAUNCHES.items() if c}
+    assert len(rows) == max(n_data * 8, 16)
+    assert all(r.matcher == "dice" for r in rows)
+    calls = got.get("make_sharded_scorer", 0)
+    kernel, per_call = (("best_match_fused", n_data) if n_model == 1
+                        else ("overlap_pairs_mma", n_data * n_model))
+    assert calls and got == {"make_sharded_scorer": calls,
+                             kernel: calls * per_call}

@@ -246,10 +246,11 @@ def runners(side):
                     "already_complete": False}
 
     class Gate(Quick):
-        def __init__(self, job, on_progress, gate, poison):
+        def __init__(self, job, on_progress, gate, poison, started):
             super().__init__(job, on_progress)
             self.gate = gate
             self.poison = poison
+            self.started = started
 
         def request_stop(self):
             self._stop = True
@@ -257,6 +258,9 @@ def runners(side):
 
         def run(self):
             self.cb("spawn", {"stripe": 0, "pid": 1, "first": True})
+            # the executor attaches the runner before it calls run(): a
+            # close() or cancel() after this event always reaches it
+            self.started.set()
             self.gate.wait(timeout=30.0)
             if self._stop or self.poison.is_set():
                 raise side.StripeStopped("operator stop")
@@ -287,7 +291,7 @@ def run_scenario(side, root: str, scenario: str) -> list:
     """One executor scenario; the status rows and results it saw, then
     the journal's records."""
     Quick, Gate = runners(side)
-    gate, poison = threading.Event(), threading.Event()
+    gate, poison, started = (threading.Event() for _ in range(3))
     JobExecutor = side.executor.JobExecutor
     terminal = side.executor.TERMINAL_STATES
     seen = []
@@ -300,7 +304,14 @@ def run_scenario(side, root: str, scenario: str) -> list:
         return ex
 
     quick = lambda j, cb: Quick(j, cb)  # noqa: E731
-    gated = lambda j, cb: Gate(j, cb, gate, poison)  # noqa: E731
+    gated = lambda j, cb: Gate(j, cb, gate, poison, started)  # noqa: E731
+
+    def wait_started(ex, job_id):
+        # "running" is set before the runner is attached; the gate's
+        # event comes after, so a stop sent now is never lost
+        wait_state(ex, job_id, ("running",))
+        assert started.wait(10.0), f"{job_id}: the runner never started"
+
     try:
         if scenario == "submit":
             ex = executor(quick)
@@ -332,7 +343,7 @@ def run_scenario(side, root: str, scenario: str) -> list:
         elif scenario == "cancel_running_across_restart":
             ex = executor(gated)
             job, _ = ex.submit(spec_of(side, ["/a"], "k1"))
-            wait_state(ex, job.job_id, ("running",))
+            wait_started(ex, job.job_id)
             ex.cancel(job.job_id)
             seen.append(wait_state(ex, job.job_id, terminal))
             ex.close()
@@ -341,7 +352,7 @@ def run_scenario(side, root: str, scenario: str) -> list:
         elif scenario == "close_requeues":
             ex = executor(gated)
             job, _ = ex.submit(spec_of(side, ["/a", "/b"], "k1"))
-            wait_state(ex, job.job_id, ("running",))
+            wait_started(ex, job.job_id)
             ex.close()
             ex2 = executor(quick)
             seen.append(ex2.resumed_jobs)
@@ -349,7 +360,7 @@ def run_scenario(side, root: str, scenario: str) -> list:
         elif scenario == "killed_executor_replays":
             ex_a = executor(gated)
             job, _ = ex_a.submit(spec_of(side, ["/a", "/b", "/c"], "k1"))
-            wait_state(ex_a, job.job_id, ("running",))
+            wait_started(ex_a, job.job_id)
             # executor A is abandoned mid-run, its journal at "running"
             ex_b = JobExecutor(root, runner_factory=quick)
             ex_b.start()
@@ -574,12 +585,12 @@ def edge_answers(side, root: str) -> list:
     (status, headers, body)."""
     import base64
 
-    gate, poison = threading.Event(), threading.Event()
+    gate, poison, started = (threading.Event() for _ in range(3))
     Quick, Gate = runners(side)
 
     def factory(job, cb):
         if job.spec.get("idempotency_key") == "gated":
-            return Gate(job, cb, gate, poison)
+            return Gate(job, cb, gate, poison, started)
         return Quick(job, cb)
 
     fleet = JobsFleet(side, root, factory)
@@ -615,6 +626,7 @@ def edge_answers(side, root: str) -> list:
             {"manifest": ["/a"], "idempotency_key": "gated"}).encode())
         gated = row["job_id"]
         wait_state(fleet.executor, gated, ("running",))
+        assert started.wait(10.0), f"{gated}: the runner never started"
         ask("GET", f"/jobs/{gated}/results")
         ask("DELETE", f"/jobs/{gated}")
         client.wait(gated, timeout_s=15.0)

@@ -246,7 +246,21 @@ def test_port_imports_no_jax_yaml_or_jax_package():
         "'licensee_tpu_torch.obs.anomaly', "
         "'licensee_tpu_torch.obs.collect', "
         "'licensee_tpu_torch.obs.selftest', "
-        "'licensee_tpu_torch.normalize.worddiff'}\n"
+        "'licensee_tpu_torch.normalize.worddiff', "
+        "'licensee_tpu_torch.graft_entry', "
+        "'licensee_tpu_torch.analysis', "
+        "'licensee_tpu_torch.analysis.__main__', "
+        "'licensee_tpu_torch.analysis.core', "
+        "'licensee_tpu_torch.analysis.scopes', "
+        "'licensee_tpu_torch.analysis.program', "
+        "'licensee_tpu_torch.analysis.protocol_schema', "
+        "'licensee_tpu_torch.analysis.rules_concurrency', "
+        "'licensee_tpu_torch.analysis.rules_events', "
+        "'licensee_tpu_torch.analysis.rules_house', "
+        "'licensee_tpu_torch.analysis.rules_metrics', "
+        "'licensee_tpu_torch.analysis.rules_protocol', "
+        "'licensee_tpu_torch.analysis.rules_resources', "
+        "'licensee_tpu_torch.analysis.rules_tracer'}\n"
         "from licensee_tpu_torch.serve import MicroBatcher, selftest\n"
         "assert selftest(verbose=False, device='cpu') == 0\n"
         "from licensee_tpu_torch.cli.main import main\n"
