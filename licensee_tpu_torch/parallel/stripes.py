@@ -526,6 +526,13 @@ class StripeRunner:
 
     def _spawn(self, handle: _StripeHandle, *, first: bool) -> None:
         argv = handle.argv_first if first else handle.argv_resume
+        try:
+            # an earlier incarnation's heartbeat (a revisited stripe
+            # count, a crashed child) must never read as this child's
+            # pressure before it has written its own
+            os.remove(f"{handle.shard}.prom")
+        except OSError:
+            pass
         log = open(handle.log, "ab")
         try:
             handle.proc = subprocess.Popen(
@@ -763,6 +770,35 @@ class StripeRunner:
                 "prom": prom if os.path.exists(prom) else None,
                 "per_stripe": [],
             }
+        try:
+            self._supervise(t0)
+        except BaseException:
+            # whatever the loop does not handle itself (an interrupt, a
+            # caller's time limit) drains the live stripes on its way up:
+            # no child outlives its runner
+            self._drain()
+            raise
+        summary = self._merge()
+        summary["elapsed_s"] = round(time.perf_counter() - t0, 3)
+        files = summary["rows_written"]
+        if summary["elapsed_s"] > 0:
+            summary["files_per_sec"] = round(
+                files / summary["elapsed_s"], 1
+            )
+        if self._decider is not None:
+            summary["autoscale"] = {
+                "initial_stripes": self._initial_stripes,
+                "final_stripes": self.stripes,
+                "featurize_procs": self._current_procs(),
+                "units": self._decider.units,
+                "scale_events": self._scale_events,
+                "events": list(self._decider.events),
+            }
+        return summary
+
+    def _supervise(self, t0: float) -> None:
+        """Spawn every stripe and supervise it to completion: respawn
+        with backoff, kill a wedged worker, autoscale."""
         for handle in self.handles:
             try:
                 self._spawn(handle, first=True)
@@ -934,23 +970,6 @@ class StripeRunner:
             if self._decider is not None:
                 self._autoscale_tick(now)
             time.sleep(self.poll_interval_s)
-        summary = self._merge()
-        summary["elapsed_s"] = round(time.perf_counter() - t0, 3)
-        files = summary["rows_written"]
-        if summary["elapsed_s"] > 0:
-            summary["files_per_sec"] = round(
-                files / summary["elapsed_s"], 1
-            )
-        if self._decider is not None:
-            summary["autoscale"] = {
-                "initial_stripes": self._initial_stripes,
-                "final_stripes": self.stripes,
-                "featurize_procs": self._current_procs(),
-                "units": self._decider.units,
-                "scale_events": self._scale_events,
-                "events": list(self._decider.events),
-            }
-        return summary
 
     # -- completion + merge --
 

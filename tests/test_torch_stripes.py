@@ -703,14 +703,27 @@ def test_real_two_stripe_run_matches_jax_and_unstriped(tmp_path, capsys):
     assert shards == outs["port1"][0]
 
 
-def test_elastic_drill_scales_up_and_down():
+@pytest.mark.timeout(60)
+@pytest.mark.parametrize("child_start_s", [0.0, 4.0])
+def test_elastic_drill_scales_up_and_down(child_start_s, monkeypatch):
     """`batch-detect --selftest-autoscale`: stub stripes under the real
     drain, respawn and resume machinery scale up on a saturated lane and
-    back down on an idle one, and merge to the static run's bytes."""
+    back down on an idle one, and merge to the static run's bytes.
+
+    At 4 s the stubs start slower than the drill's cooldown, as a JAX
+    import (~3.5 s) or a card child (8-13 s) does: each rescale returns
+    to a stripe count whose heartbeat files an earlier generation left,
+    and a runner that read them as its new children's pressure would
+    flap between 1 and 2 stripes without end."""
     import io
 
-    from licensee_tpu_torch.parallel.stripes import selftest_autoscale
+    from licensee_tpu_torch.parallel import stripes
 
+    monkeypatch.setattr(
+        stripes, "_AUTOSCALE_STUB",
+        f"import time\ntime.sleep({child_start_s})\n"
+        + stripes._AUTOSCALE_STUB,
+    )
     log = io.StringIO()
-    assert selftest_autoscale(stream=log) == 0, log.getvalue()
+    assert stripes.selftest_autoscale(stream=log) == 0, log.getvalue()
     assert "scaled up then down" in log.getvalue()
